@@ -7,7 +7,7 @@ K_HYP hypotheses, tiled Gaussian x vMF atlas with OT association), written
 as plain functions on tensors with an explicit `device`. The subpackage
 layout and module names mirror the JAX package's one for one. The package imports
 torch and numpy only; hand-written CUDA sources live in `csrc/` and are
-built on first use (see `ops/sinkhorn.py`).
+built on first use (see `ops/cuda_build.py`).
 
 Importing this package sets the numeric policy (`utils.dtypes`): TF32 off
 for matmuls and cuDNN.

@@ -4,9 +4,13 @@ the JAX package's frontend/synthetic.py, LiDAR + IMU + odometry).
 A planar robot drives a smooth arc through a room of walls and pillars,
 emitting VLP-16-like LiDAR scans with real per-point skew, 200 Hz IMU
 (specific force + gyro with bias and noise) and drifting wheel odometry;
-ground truth is returned for ATE scoring. All randomness comes from one
-numpy `default_rng(seed)` in the same order as the JAX package's generator,
-so both produce the same scans bit for bit. Batches are CPU tensors.
+ground truth is returned for ATE scoring. With `with_camera` it also
+raycasts a small pinhole RGB-D frame per scan and runs the visual frontend
+(frontend/camera.py) on it to fill the batch's camera slice. All randomness
+comes from one numpy `default_rng(seed)` in the same order as the JAX
+package's generator, so both produce the same LiDAR, IMU and odometry
+streams bit for bit. Batches, and the camera frontend, live on `device`
+(default: the CUDA card).
 """
 
 from __future__ import annotations
@@ -15,9 +19,12 @@ import dataclasses
 from typing import List, NamedTuple, Tuple
 
 import numpy as np
+import torch
 
 from gcslam_torch import constants as C
+from gcslam_torch.frontend import camera as cam_mod
 from gcslam_torch.models.scan_io import ScanBatch, batch_from_numpy, range_weights
+from gcslam_torch.utils.device import resolve_device
 
 
 def _rotvec_R(rv) -> np.ndarray:
@@ -83,6 +90,12 @@ class SyntheticConfig:
     # the rotvec/transform conventions that identity extrinsics never test.
     T_base_lidar: Tuple[float, ...] = (0.0,) * 6  # [t(3), rotvec(3)]
     T_base_imu: Tuple[float, ...] = (0.0,) * 6
+    # RGB-D camera: raycast a small pinhole image per scan and run the
+    # visual frontend (Harris + depth fusion) to fill the camera slice.
+    with_camera: bool = False
+    cam_w: int = 160
+    cam_h: int = 120
+    cam_fx: float = 120.0
 
 
 def _yaw_R(yaw: np.ndarray) -> np.ndarray:
@@ -164,6 +177,65 @@ def _vlp16_dirs(rng: np.random.Generator, n: int, yaw0: np.ndarray) -> np.ndarra
     return np.stack([ce * np.cos(az), ce * np.sin(az), se], -1)
 
 
+# Camera mounted looking along +x of the base, z-up -> standard pinhole
+# axes (z forward, x right, y down).
+R_BASE_CAM = np.array([[0.0, 0.0, 1.0], [-1.0, 0.0, 0.0], [0.0, -1.0, 0.0]])
+_CAM_OFFSET = np.array([0.15, 0.0, _SENSOR_Z])  # camera origin in the base frame
+
+
+def _rotvec_of(R) -> np.ndarray:
+    tr = np.trace(R)
+    cos = np.clip(0.5 * (tr - 1), -1, 1)
+    vex = 0.5 * np.array([R[2, 1] - R[1, 2], R[0, 2] - R[2, 0], R[1, 0] - R[0, 1]])
+    sin = np.linalg.norm(vex)
+    theta = np.arctan2(sin, cos)
+    return vex * (theta / sin if sin > 1e-9 else 1.0)
+
+
+T_BASE_CAM = np.concatenate([_CAM_OFFSET, _rotvec_of(R_BASE_CAM)])  # [t(3), rotvec(3)]
+
+
+def _render_rgbd(pos, yaw, cfg):
+    """Raycast a pinhole RGB-D frame of the room from the robot pose."""
+    W, H = cfg.cam_w, cfg.cam_h
+    fx = fy = cfg.cam_fx
+    cx, cy = W / 2.0, H / 2.0
+    u, v = np.meshgrid(np.arange(W), np.arange(H))
+    d_cam = np.stack([(u - cx) / fx, (v - cy) / fy, np.ones_like(u, dtype=np.float64)], -1)
+    d_cam /= np.linalg.norm(d_cam, axis=-1, keepdims=True)
+    R_wb = _yaw_R(np.asarray(yaw))
+    R_wc = R_wb @ R_BASE_CAM
+    d_world = d_cam.reshape(-1, 3) @ R_wc.T
+    origin = pos + R_wb @ _CAM_OFFSET
+    origins = np.broadcast_to(origin, d_world.shape).copy()
+    pts, hit = _raycast_room(origins, d_world, cfg.max_range)
+    # depth = z in the camera frame
+    depth = ((pts - origin) @ R_wc)[:, 2]
+    depth = np.where(hit, depth, 0.0).reshape(H, W)
+    # procedural world texture: 0.5 m checker + smooth gradients
+    tex = ((np.floor(pts[:, 0] * 2) + np.floor(pts[:, 1] * 2) + np.floor(pts[:, 2] * 2)) % 2)
+    gray = (0.3 + 0.5 * tex + 0.2 * np.sin(pts[:, 0]) * np.cos(pts[:, 1])).reshape(H, W)
+    rgb = np.stack([gray, 0.5 + 0.3 * np.cos(pts[:, 2] * 3).reshape(H, W), 1.0 - gray], -1)
+    return gray, depth, np.clip(rgb, 0, 1), R_wc, origin
+
+
+def _camera_slice(cfg, pos, yaw, p_body, weights, device) -> dict:
+    """The batch's camera fields for one scan: render, extract features on
+    `device` with the LiDAR points as depth evidence, move to the base frame."""
+    gray, depth_img, rgb_img, R_wc, cam_origin = _render_rgbd(pos, yaw, cfg)
+    intr = cam_mod.PinholeIntrinsics(fx=cfg.cam_fx, fy=cfg.cam_fx, cx=cfg.cam_w / 2.0, cy=cfg.cam_h / 2.0)
+    # LiDAR points (body) -> camera frame for the Route A/B depth fusion
+    lidar_world = p_body @ _yaw_R(np.asarray(yaw)).T + pos[None, :]
+    lidar_cam = (lidar_world - cam_origin[None, :]) @ R_wc
+
+    def t(x):
+        return torch.as_tensor(x, device=device)
+
+    feats = cam_mod.extract_camera_features(
+        t(gray), t(depth_img), t(rgb_img), intr, t(lidar_cam), t(weights), n_feat=C.N_FEAT)
+    feats = cam_mod.features_to_base_frame(feats, T_BASE_CAM)
+    return dict(cam_Lambdas=feats.Lambdas, cam_thetas=feats.thetas, cam_etas=feats.etas,
+                cam_weights=feats.weights, cam_colors=feats.colors, cam_valid=feats.valid)
 
 
 class SyntheticRun(NamedTuple):
@@ -232,7 +304,10 @@ def build_trajectory(cfg: SyntheticConfig):
     return traj
 
 
-def generate(cfg: SyntheticConfig = SyntheticConfig()) -> SyntheticRun:
+def generate(cfg: SyntheticConfig = SyntheticConfig(), device=None) -> SyntheticRun:
+    """The synthetic replay: one ScanBatch per scan on `device` (default:
+    the CUDA card), ground-truth poses and stamps."""
+    device = resolve_device(device)
     rng = np.random.default_rng(cfg.seed)
     scan_dt = 1.0 / cfg.scan_rate_hz
     imu_dt = 1.0 / cfg.imu_rate_hz
@@ -385,6 +460,18 @@ def generate(cfg: SyntheticConfig = SyntheticConfig()) -> SyntheticRun:
         odom_twist = np.concatenate([v_body, [0.0, 0.0, wz + rng.normal(0, 1e-3)]])
         odom_twist_cov = np.diag([cfg.odom_vel_noise_std**2] * 3 + [1e-6] * 3)
 
+        if cfg.with_camera:
+            cam = _camera_slice(cfg, pos, yaw, p_body, weights, device)
+        else:
+            cam = dict(
+                cam_Lambdas=np.zeros((C.N_FEAT, 3, 3)),
+                cam_thetas=np.zeros((C.N_FEAT, 3)),
+                cam_etas=np.zeros((C.N_FEAT, C.VMF_N_LOBES, 3)),
+                cam_weights=np.zeros(C.N_FEAT),
+                cam_colors=np.zeros((C.N_FEAT, 3)),
+                cam_valid=np.zeros(C.N_FEAT, bool),
+            )
+
         batches.append(batch_from_numpy(dict(
             points=p_body,
             point_stamps=pt_times + cfg.t0,
@@ -400,12 +487,7 @@ def generate(cfg: SyntheticConfig = SyntheticConfig()) -> SyntheticRun:
             odom_twist_cov=odom_twist_cov,
             odom_rel_pose=odom_rel,
             odom_rel_cov=odom_rel_cov,
-            cam_Lambdas=np.zeros((C.N_FEAT, 3, 3)),
-            cam_thetas=np.zeros((C.N_FEAT, 3)),
-            cam_etas=np.zeros((C.N_FEAT, C.VMF_N_LOBES, 3)),
-            cam_weights=np.zeros(C.N_FEAT),
-            cam_colors=np.zeros((C.N_FEAT, 3)),
-            cam_valid=np.zeros(C.N_FEAT, bool),
+            **cam,
             loop_pose=np.zeros(6),
             loop_cov=1e12 * np.eye(6),
             loop_weight=np.zeros(()),
@@ -415,7 +497,7 @@ def generate(cfg: SyntheticConfig = SyntheticConfig()) -> SyntheticRun:
             t_last_scan=np.asarray(t_last_scan + cfg.t0),
             dt_sec=np.asarray(t_scan - t_last_scan),
             scan_seq=np.asarray(k, np.int32),
-        )))
+        ), device=device))
         t_last_scan = t_scan
 
     return SyntheticRun(batches=batches, gt_poses=gt_poses, gt_times=gt_times)

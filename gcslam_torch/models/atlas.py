@@ -228,17 +228,20 @@ def build_measurement_inputs(
     deskewed_points, point_stamps, deskewed_weights, batch_in, atlas_view: AtlasView,
     z_center, cfg: PipelineConfig, sensor_var=None,
 ):
-    """Surfel extraction + measurement batch (no camera rows) + distance
-    shortlist at z_center; returns (mbatch, CandidateSet, surfel cert)."""
+    """Surfel extraction + measurement batch + distance shortlist at
+    z_center; returns (mbatch, CandidateSet, surfel cert). The batch's
+    camera rows come first when cfg.with_camera and are dropped otherwise
+    (zero-weight rows would change nothing but the shapes)."""
     surfels, surf_cert = extract_surfels(
         deskewed_points, point_stamps, deskewed_weights,
         cfg.n_surfel, cfg.surfel_voxel_size_m, cfg.surfel_min_points_per_voxel,
         sensor_var=sensor_var,
     )
     b = batch_in
+    n_cam = b.cam_valid.shape[0] if cfg.with_camera else 0
     mbatch = from_camera_and_surfels(
-        b.cam_Lambdas[:0], b.cam_thetas[:0], b.cam_etas[:0], b.cam_weights[:0],
-        b.cam_colors[:0], b.cam_valid[:0], b.t_scan,
+        b.cam_Lambdas[:n_cam], b.cam_thetas[:n_cam], b.cam_etas[:n_cam], b.cam_weights[:n_cam],
+        b.cam_colors[:n_cam], b.cam_valid[:n_cam], b.t_scan,
         surfels.positions, surfels.Lambdas, surfels.normals, surfels.kappas,
         surfels.weights, surfels.timestamps, surfels.valid,
     )

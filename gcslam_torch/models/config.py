@@ -103,7 +103,12 @@ class PipelineConfig:
     pose_scan_sigma_floor_m: float = 0.02
     pose_scan_sigma_floor_rad: float = 0.002
 
-    # Camera (the camera path is not ported yet)
+    # Camera: with_camera adds the batch's camera rows to the measurement
+    # batch. pose_rot_scatter_surfels_only keeps camera splats (whose vMF
+    # lobe is the viewpoint-dependent viewing ray) out of the rotation
+    # scatter; pose_camera_weight scales camera rows' responsibilities in
+    # the pose factor; pose_modality_mode "cam_to_lidar" lets camera rows
+    # vote only against lidar-dominant slots ("matched": same-modality pairs).
     with_camera: bool = False
     pose_rot_scatter_surfels_only: bool = True
     pose_camera_weight: float = 1.0
@@ -154,8 +159,6 @@ class PipelineConfig:
             missing.append("imu_mode='evidence'")
         if self.odom_pose_mode != "absolute":
             missing.append("odom_pose_mode='relative'")
-        if self.with_camera:
-            missing.append("with_camera=True")
         if self.with_map and not (self.map_share_extraction and self.map_gn_shared):
             missing.append("per-hypothesis map GN (map_gn_shared=False)")
         if self.with_map and self.k_shortlist == 0:

@@ -10,7 +10,8 @@ import torch
 
 from gcslam_torch.models.config import PipelineConfig
 from gcslam_torch.models.scan_io import ScanBatch
-from gcslam_torch.models.scan_step import ScanTape, StepOutput, StepState, init_state, scan_step
+from gcslam_torch.models.scan_step import ScanTape, StepOutput, StepState, init_state, scan_step, state_to
+from gcslam_torch.utils.device import resolve_device
 
 
 def stack_outputs(outs: List[StepOutput]) -> StepOutput:
@@ -27,14 +28,12 @@ def run_bag(
     state: Optional[StepState] = None,
     device=None,
 ) -> Tuple[StepState, StepOutput]:
-    """Replay a bag scan by scan on `device` (default: where the batches or
-    the given state live)."""
+    """Replay a bag scan by scan on `device` (default: the CUDA card); the
+    batches and a given state are moved there."""
     config.validate()
     config.check_ported()
-    if device is None:
-        device = state.hyp_weights.device if state is not None else batches[0].points.device
-    if state is None:
-        state = init_state(config, device=device)
+    device = resolve_device(device)
+    state = init_state(config, device=device) if state is None else state_to(state, device)
     outs = []
     with torch.no_grad():
         for batch in batches:

@@ -3,8 +3,8 @@ of the JAX package's models/scan_io.py).
 
 Every field has a static shape set by the budgets; validity lives in
 weights/masks, never in shapes. `batch_from_numpy` takes the JAX package's
-ScanBatch given as a tree of numpy arrays (any object with the fields as
-attributes, or a mapping) and returns the port's.
+ScanBatch given as a tree of numpy arrays or tensors (any object with the
+fields as attributes, or a mapping) and returns the port's.
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from gcslam_torch import constants as C
+from gcslam_torch.utils.device import resolve_device
 from gcslam_torch.utils.dtypes import BELIEF_DTYPE, POINT_DTYPE, TIME_DTYPE
 
 
@@ -79,9 +80,15 @@ def _field(tree, name):
 
 
 def batch_from_numpy(tree, device=None) -> ScanBatch:
-    """ScanBatch from a tree of numpy arrays with the ScanBatch fields."""
+    """ScanBatch from a tree of numpy arrays (or tensors) with the ScanBatch
+    fields, on `device` (default: the CUDA card)."""
+    device = resolve_device(device)
+
+    def conv(x):
+        return x if isinstance(x, torch.Tensor) else np.array(x)
+
     return ScanBatch(**{
-        f: torch.as_tensor(np.array(_field(tree, f)), dtype=FIELD_DTYPES[f], device=device)
+        f: torch.as_tensor(conv(_field(tree, f)), dtype=FIELD_DTYPES[f], device=device)
         for f in ScanBatch._fields
     })
 

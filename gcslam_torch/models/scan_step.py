@@ -37,6 +37,7 @@ from gcslam_torch.ops.predict import predict_imu
 from gcslam_torch.ops.preintegration import imu_integration_time, imu_mean_sample_period, preintegrate
 from gcslam_torch.ops.se3 import mv
 from gcslam_torch.ops.windows import smooth_window_weights
+from gcslam_torch.utils.device import resolve_device
 from gcslam_torch.utils.dtypes import BELIEF_DTYPE
 
 
@@ -609,7 +610,9 @@ def scan_step(state: StepState, batch: ScanBatch, config: PipelineConfig) -> Tup
 
 
 def init_state(config: PipelineConfig, stamp: float = 0.0, X_anchor=None, device=None) -> StepState:
-    """K_HYP identity-prior beliefs + datasheet IW states (+ empty atlas)."""
+    """K_HYP identity-prior beliefs + datasheet IW states (+ empty atlas), on
+    `device` (default: the CUDA card)."""
+    device = resolve_device(device)
     b0 = identity_prior(stamp, device=device)
     if X_anchor is not None:
         b0 = b0._replace(X_anchor=torch.as_tensor(X_anchor, dtype=BELIEF_DTYPE, device=device))
@@ -640,7 +643,10 @@ def _get(tree, name):
 
 def state_from_numpy(tree, device=None) -> StepState:
     """StepState from a tree of numpy arrays with the StepState fields
-    (e.g. the JAX package's state after np.asarray on every leaf)."""
+    (e.g. the JAX package's state after np.asarray on every leaf), on
+    `device` (default: the CUDA card)."""
+    device = resolve_device(device)
+
     def conv(x):
         return torch.as_tensor(np.array(x), device=device)
 
@@ -655,17 +661,23 @@ def state_from_numpy(tree, device=None) -> StepState:
     return StepState(**fields)
 
 
-def state_to_numpy(state: StepState) -> StepState:
-    """The same StepState structure with numpy arrays for leaves (field
-    names and order match the JAX package's StepState)."""
-    def conv(x):
-        return x.detach().cpu().numpy()
-
+def _map_state(state: StepState, fn) -> StepState:
     fields = {}
     for name in StepState._fields:
         sub = getattr(state, name)
         if name in _STATE_TYPES:
-            fields[name] = None if sub is None else type(sub)(*[conv(x) for x in sub])
+            fields[name] = None if sub is None else type(sub)(*[fn(x) for x in sub])
         else:
-            fields[name] = conv(sub)
+            fields[name] = fn(sub)
     return StepState(**fields)
+
+
+def state_to(state: StepState, device) -> StepState:
+    """The same state with every tensor on `device`."""
+    return _map_state(state, lambda x: x.to(device))
+
+
+def state_to_numpy(state: StepState) -> StepState:
+    """The same StepState structure with numpy arrays for leaves (field
+    names and order match the JAX package's StepState)."""
+    return _map_state(state, lambda x: x.detach().cpu().numpy())

@@ -7,99 +7,35 @@ b (K,)/(B, K). On CUDA tensors it launches the kernel — one launch for all
 n_iters iterations, one thread block per problem — or raises; on CPU
 tensors it runs `sinkhorn_unbalanced_reference`. The kernel is compiled
 with nvcc on first use into csrc/build/ (a plain C interface loaded with
-ctypes) from the source in this checkout.
+ctypes, ops/cuda_build.py) from the source in this checkout.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-from pathlib import Path
 
 import torch
 
-_CSRC = Path(__file__).resolve().parent.parent / "csrc"
-_SOURCE = _CSRC / "sinkhorn.cu"
-_BUILD = _CSRC / "build"
+from gcslam_torch.ops.cuda_build import KernelLibrary, LaunchCounter
+
 MAX_K = 32
 MAX_N = 2048  # 256 threads x 8 register-resident rows per thread
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-
-class LaunchCounter:
-    """Count of kernel launches (incremented only where the kernel runs)."""
-
-    def __init__(self):
-        self.launches = 0
-
-    def reset(self) -> None:
-        self.launches = 0
-
-
+_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_double] * 3 + [ctypes.c_int, ctypes.c_void_p]
+_KERNEL = KernelLibrary("sinkhorn.cu", "gcslam_sinkhorn",
+                        {"gcslam_sinkhorn_f32": _ARGS, "gcslam_sinkhorn_f64": _ARGS})
 COUNTER = LaunchCounter()
 
 
-class _Lib:
-    handle = None
-    build_log = ""
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(cuda_home, "bin", "nvcc")
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
-    return path
-
-
-def build() -> Path:
-    """Compile csrc/sinkhorn.cu into csrc/build/ (keyed by the source hash)
-    unless that library exists; returns its path."""
-    src = _SOURCE.read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    lib_path = _BUILD / f"libgcslam_sinkhorn_{digest}.so"
-    if lib_path.exists():
-        return lib_path
-    _BUILD.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD)
-    os.close(fd)
-    try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(_SOURCE)],
-                              capture_output=True, text=True)
-        _Lib.build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{_Lib.build_log}")
-        os.replace(tmp, lib_path)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return lib_path
-
-
-def _lib():
-    if _Lib.handle is None:
-        lib = ctypes.CDLL(str(build()))
-        args = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_double] * 3 + [
-            ctypes.c_int, ctypes.c_void_p]
-        for name in ("gcslam_sinkhorn_f32", "gcslam_sinkhorn_f64"):
-            fn = getattr(lib, name)
-            fn.argtypes = args
-            fn.restype = ctypes.c_int
-        _Lib.handle = lib
-    return _Lib.handle
+def build():
+    """Compile csrc/sinkhorn.cu into csrc/build/ unless that library
+    exists; returns its path."""
+    return _KERNEL.build()
 
 
 def build_log() -> str:
     """nvcc's output of the build made by this process ('' if none was needed)."""
-    return _Lib.build_log
+    return _KERNEL.build_log
 
 
 def _scalars(epsilon: float, tau_a: float, tau_b: float):
@@ -142,7 +78,7 @@ def sinkhorn_unbalanced(C, a, b, epsilon, tau_a, tau_b, n_iters: int):
     if C.device.type == "cpu":
         return sinkhorn_unbalanced_reference(C, a, b, epsilon, tau_a, tau_b, n_iters)
     _check(C, a, b)
-    lib = _lib()
+    lib = _KERNEL.lib()
     eps, ua, vb = _scalars(epsilon, tau_a, tau_b)
     N, K = C.shape[-2:]
     B = C.shape[0] if C.dim() == 3 else 1

@@ -52,6 +52,7 @@ BAD = [
     dict(odom_pose_mode="bogus"),
     dict(pose_modality_mode="bogus"),
     dict(surfel_min_points_per_voxel=0),
+    dict(pose_camera_weight=-1.0),
 ]
 
 
@@ -75,7 +76,8 @@ def test_validate_accepts_the_same_configs(overrides):
 
 
 @pytest.mark.parametrize("overrides", [
-    dict(imu_mode="evidence"), dict(odom_pose_mode="relative"), dict(with_camera=True),
+    dict(imu_mode="evidence"), dict(odom_pose_mode="relative"),
+    dict(map_share_extraction=False, map_gn_shared=False),
     dict(map_gn_shared=False), dict(k_shortlist=0), dict(ot_subtract_row_min=True),
 ])
 def test_unported_options_are_refused(overrides):
@@ -84,3 +86,16 @@ def test_unported_options_are_refused(overrides):
     with pytest.raises(NotImplementedError):
         cfg.check_ported()
     TorchConfig().check_ported()
+
+
+CAMERA = [dict(with_camera=True), dict(with_camera=True, pose_camera_weight=0.0),
+          dict(with_camera=True, pose_modality_mode="matched"),
+          dict(with_camera=True, pose_rot_scatter_surfels_only=False, pose_modality_matched=False)]
+
+
+@pytest.mark.parametrize("overrides", CAMERA, ids=[str(c) for c in CAMERA])
+def test_camera_options_are_ported(overrides):
+    JaxConfig(**overrides).validate()
+    cfg = TorchConfig(**overrides)
+    cfg.validate()
+    cfg.check_ported()

@@ -15,6 +15,9 @@ def test_port_imports_without_jax():
         "sys.modules['jax'] = None\n"
         "import gcslam_torch.models.runner, gcslam_torch.frontend.synthetic, gcslam_torch.eval.ate_rpe\n"
         "import gcslam_torch.ops.sinkhorn\n"
+        "import gcslam_torch.frontend.camera, gcslam_torch.outputs.rendering, gcslam_torch.outputs.raster\n"
+        "import gcslam_torch.outputs.tum, gcslam_torch.outputs.splat_export, gcslam_torch.outputs.diagnostics\n"
+        "import gcslam_torch.tools.view_splats, gcslam_torch.ops.cuda_build\n"
         "bad = [m for m in sys.modules if m.startswith(('jax', 'gcslam_tpu')) and sys.modules[m]]\n"
         "assert not bad, bad\n"
     )
@@ -27,3 +30,20 @@ def test_port_sources_do_not_reference_the_jax_package():
     offenders = [str(p) for p in (ROOT / "gcslam_torch").rglob("*") if p.suffix in (".py", ".cu")
                  and pattern.search(p.read_text())]
     assert not offenders, offenders
+
+
+def test_chip_smoke_imports_no_jax_and_needs_the_card(tmp_path):
+    """chip_smoke.py imports nothing of JAX or the JAX package (the TPU
+    kernel paths it reports are data), and without a card — or without the
+    rest of the repository — it exits non-zero and prints no result line."""
+    src = (ROOT / "chip_smoke.py").read_text()
+    assert not re.search(r"^\s*(import|from)\s+(jax|gcslam_tpu)\b", src, re.M)
+    block_jax = "import sys; sys.modules['jax'] = None; sys.argv = ['chip_smoke.py']; "
+    for cwd, setup in ((ROOT, "import torch; torch.cuda.is_available = lambda: False; "), (tmp_path, "")):
+        if cwd == tmp_path:
+            (tmp_path / "chip_smoke.py").write_text(src)
+        code = block_jax + setup + "import runpy; runpy.run_path('chip_smoke.py', run_name='__main__')"
+        out = subprocess.run([sys.executable, "-c", code], cwd=cwd, capture_output=True, text=True, timeout=300,
+                             env={k: v for k, v in __import__("os").environ.items() if k != "PYTHONPATH"})
+        assert out.returncode != 0, (cwd, out.stdout, out.stderr)
+        assert '"ok": true' not in out.stdout

@@ -54,8 +54,8 @@ def close(j, t, rtol, atol):
 def world():
     run = jgenerate(JSynth(n_scans=10, n_points=512))
     jcfg, tcfg = JConfig(**SMALL), TConfig(**SMALL)
-    tbatches = [batch_from_numpy(np_tree(b)) for b in run.batches[:SCAN + 1]]
-    ts, _ = trunner.run_bag(tbatches[:SCAN], tcfg)
+    tbatches = [batch_from_numpy(np_tree(b), device="cpu") for b in run.batches[:SCAN + 1]]
+    ts, _ = trunner.run_bag(tbatches[:SCAN], tcfg, device="cpu")
     ns = tstep.state_to_numpy(ts)
     js = jstep.StepState(
         beliefs=JBelief(*ns.beliefs), hyp_weights=ns.hyp_weights,

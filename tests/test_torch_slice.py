@@ -51,7 +51,18 @@ TOL = {
     "map_fused_mass": (1e-2, 1e-3), "ot_transport_mass": (1e-2, 1e-3), "map_insert_mass": (1e-3, 1e-6),
     "map_ins_w": (1e-3, 1e-6), "map_ins_mu": (0, 1e-5), "io_point_weight_sum": (1e-6, 0),
     "ee_info_gain_pred": (1e-4, 0), "ee_info_gain_real": (1e-4, 0), "hyp_spread": (1e-4, 1e-12),
-    "power_beta": (1e-6, 0), "total_trigger_magnitude": (1e-6, 0),
+    "power_beta": (1e-6, 0),
+    # The sum of 21 certificates' trigger magnitudes over K_HYP = 4
+    # hypotheses. Split per certificate on scan 5 of the 5-scan run, the
+    # one term that differs beyond 3e-7 is the OT association certificate's
+    # mass_epsilon_ratio = eps_mass / (transport_mass + eps_mass), on the
+    # reference's f32 point path: the final GN round matched little mass
+    # (3.52e-9 vs 3.56e-9, an f32 sum 1.1 % apart), so the ratio reads
+    # 2.836e-4 vs 2.806e-4, 3.05e-6 per hypothesis, 1.22e-5 in the sum.
+    # Ungated scans have transport mass >= 1e-9, so the ratio is <= 1e-3
+    # and a ~1 % mass error moves the sum by <= 4.4e-5, 6.5e-6 of the
+    # field's ~6.8: rtol 1e-5.
+    "total_trigger_magnitude": (1e-5, 0),
     # eigenvalue-floor deltas are themselves rounding-level (~1e-10)
     "influence_psd_projection_delta": (0, 1e-9), "influence_anchor_drift_rho": (0, 1e-12),
 }
@@ -75,7 +86,8 @@ def near(name, ref, got, rtol, atol):
         assert err <= rtol * np.abs(ref).max() + atol, f"{name}: max |d| {err:.3e}"
 
 
-def compare_tape(jtape, ttape):
+def compare_tape(jtape, ttape, tol=None):
+    tol = {**TOL, **(tol or {})}
     degenerate = np.asarray(jtape.ot_transport_mass) < 1e-9
     for f in ttape._fields:
         j, t = np.asarray(getattr(jtape, f)), getattr(ttape, f).numpy()
@@ -85,7 +97,7 @@ def compare_tape(jtape, ttape):
             assert np.array_equal(j.astype(np.float64), t.astype(np.float64)), f
         else:
             keep = ~degenerate if (f in MASS_GATED and j.ndim) else slice(None)
-            near(f, j[keep], t[keep], *TOL.get(f, DEFAULT_TOL))
+            near(f, j[keep], t[keep], *tol.get(f, DEFAULT_TOL))
 
 
 @pytest.fixture(scope="module")
@@ -95,14 +107,14 @@ def run():
 
 @pytest.fixture(scope="module")
 def tbatches(run):
-    return [batch_from_numpy(np_tree(b)) for b in run.batches]
+    return [batch_from_numpy(np_tree(b), device="cpu") for b in run.batches]
 
 
 def test_generate_equals_the_jax_generator(run):
     from gcslam_tpu.models.scan_io import stack_scan_batches as jstack
     from gcslam_torch.models.scan_io import stack_scan_batches as tstack
 
-    mine = generate(SyntheticConfig(n_scans=10, n_points=512))
+    mine = generate(SyntheticConfig(n_scans=10, n_points=512), device="cpu")
     for j, t in zip(jstack(run.batches[:3]), tstack(mine.batches[:3])):
         assert np.array_equal(np.asarray(j), t.numpy())
     np.testing.assert_array_equal(mine.gt_poses, run.gt_poses)
@@ -119,7 +131,7 @@ def test_scan_step_from_a_shared_state(run, tbatches):
     s = jinit_state(jcfg)
     for b in run.batches[:3]:
         s, _ = jrunner._step_jit(s, b, jcfg)
-    ts = tstep.state_from_numpy(np_tree(s))
+    ts = tstep.state_from_numpy(np_tree(s), device="cpu")
     back = tstep.state_to_numpy(ts)  # the round trip is lossless
     for jx, tx in zip(jax.tree_util.tree_leaves(np_tree(s)), jax.tree_util.tree_leaves(back)):
         assert jx.dtype == tx.dtype and np.array_equal(jx, tx)
@@ -148,7 +160,7 @@ def test_scan_step_from_a_shared_state(run, tbatches):
 
 def test_run_bag_from_init_state(run, tbatches):
     _, jout = jrunner.run_bag(run.batches[:5], JConfig(**SMALL))
-    _, tout = runner.run_bag(tbatches[:5], PipelineConfig(**SMALL))
+    _, tout = runner.run_bag(tbatches[:5], PipelineConfig(**SMALL), device="cpu")
     near("pose", jout.pose, tout.pose.numpy(), 0, POSE_ATOL)
     near("stamp", jout.stamp, tout.stamp.numpy(), 0, 0)
     compare_tape(np_tree(jout.tape), tout.tape)
@@ -156,8 +168,8 @@ def test_run_bag_from_init_state(run, tbatches):
 
 def test_two_port_runs_are_bit_equal(tbatches):
     cfg = PipelineConfig(**SMALL)
-    s1, o1 = runner.run_bag(tbatches[:5], cfg)
-    s2, o2 = runner.run_bag(tbatches[:5], cfg)
+    s1, o1 = runner.run_bag(tbatches[:5], cfg, device="cpu")
+    s2, o2 = runner.run_bag(tbatches[:5], cfg, device="cpu")
     assert torch.equal(o1.pose, o2.pose)
     for a, b in zip(o1.tape, o2.tape):
         assert torch.equal(a, b)
@@ -172,11 +184,11 @@ def test_nonfinite_and_empty_scans(run, tbatches):
     packages from the same state after one scan."""
     jcfg, tcfg = JConfig(**SMALL), PipelineConfig(**SMALL)
     s, _ = jrunner._step_jit(jinit_state(jcfg), run.batches[0], jcfg)
-    ts = tstep.state_from_numpy(np_tree(s))
+    ts = tstep.state_from_numpy(np_tree(s), device="cpu")
     bad = np_tree(run.batches[1])._replace(imu_accel=np.asarray(run.batches[1].imu_accel).copy())
     bad.imu_accel[3, 1] = np.nan
     _, jout = jrunner._step_jit(s, jax.tree_util.tree_map(jax.numpy.asarray, bad), jcfg)
-    _, tout = tstep.scan_step(ts, batch_from_numpy(bad), tcfg)
+    _, tout = tstep.scan_step(ts, batch_from_numpy(bad, device="cpu"), tcfg)
     bit = TRIGGERS["NonFiniteEvidence"]
     assert int(jout.tape.cert_triggers) & bit and int(tout.tape.cert_triggers) & bit
     near("pose", jout.pose, tout.pose.numpy(), 0, POSE_ATOL)
@@ -197,6 +209,60 @@ def test_nonfinite_and_empty_scans(run, tbatches):
 def test_no_map_run_bag(run, tbatches):
     """with_map=False (IMU + odometry only, no kernel): same replay in both."""
     _, jout = jrunner.run_bag(run.batches[:4], JConfig(with_map=False))
-    _, tout = runner.run_bag(tbatches[:4], PipelineConfig(with_map=False))
+    _, tout = runner.run_bag(tbatches[:4], PipelineConfig(with_map=False), device="cpu")
     near("pose", jout.pose, tout.pose.numpy(), 0, 1e-9)
     compare_tape(np_tree(jout.tape), tout.tape)
+
+
+# --- the camera-on slice (with_camera=True) ---------------------------------
+
+SMALL_CAM = dict(SMALL, with_camera=True)
+# With camera rows in the batch, the OT mass fields spread further: one
+# step from the JAX state after two scans gives transport masses 2.6 %
+# apart, five scans from init up to 7.4 %, while the association from
+# identical measurement batches agrees to 3e-7 (test_torch_camera.py). The
+# spread enters with the f32 surfel extraction each side runs (normals
+# ~1e-3 apart, as in the LiDAR-only runs) and is carried into the camera
+# pairs' exp(-C/eps) through their vMF and ~1e6-precision terms. Poses agree
+# to 1e-12 m (measured 6e-13).
+CAM_TOL = {"map_fused_mass": (0.1, 1e-3), "ot_transport_mass": (0.1, 1e-3),
+           "ot_marginal_defect_a": (0.1, 0), "map_insert_mass": (1e-2, 1e-6), "map_ins_w": (0.05, 1e-6)}
+
+
+@pytest.fixture(scope="module")
+def cam_run():
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("GCSLAM_NO_NATIVE", "1")  # the pure route, which the port mirrors
+        run = jgenerate(JSynth(n_scans=5, n_points=512, with_camera=True))
+    return run, [batch_from_numpy(np_tree(b), device="cpu") for b in run.batches]
+
+
+def test_camera_run_bag_from_init_state(cam_run):
+    run, tb = cam_run
+    _, jout = jrunner.run_bag(run.batches, JConfig(**SMALL_CAM))
+    _, tout = runner.run_bag(tb, PipelineConfig(**SMALL_CAM), device="cpu")
+    assert np.all(np.asarray(jout.tape.io_n_cam_valid) > 200)
+    assert np.asarray(jout.tape.ot_transport_mass)[-1] > 1.0  # camera rows matched the map
+    near("pose", jout.pose, tout.pose.numpy(), 0, POSE_ATOL)
+    compare_tape(np_tree(jout.tape), tout.tape, CAM_TOL)
+
+
+def test_camera_scan_step_from_a_shared_state(cam_run):
+    """JAX runs three camera-on scans; its state goes to the port; both run
+    scan 4: the single-step agreement (map fields as the LiDAR-only step)."""
+    run, tb = cam_run
+    jcfg, tcfg = JConfig(**SMALL_CAM), PipelineConfig(**SMALL_CAM)
+    s = jinit_state(jcfg)
+    for b in run.batches[:3]:
+        s, _ = jrunner._step_jit(s, b, jcfg)
+    ts = tstep.state_from_numpy(np_tree(s), device="cpu")
+    s4, jout = jrunner._step_jit(s, run.batches[3], jcfg)
+    t4, tout = tstep.scan_step(ts, tb[3], tcfg)
+    near("pose", jout.pose, tout.pose.numpy(), 0, POSE_ATOL)
+    compare_tape(jax.tree_util.tree_map(lambda x: np.asarray(x)[None], jout.tape),
+                 tstep.ScanTape(*[x[None] for x in tout.tape]))
+    js4, ts4 = np_tree(s4), tstep.state_to_numpy(t4)
+    for f in ("cam_mass", "rgb_accum", "rgb_denom", "rgb", "weights", "Lambdas", "thetas"):
+        near("atlas." + f, getattr(js4.atlas, f), getattr(ts4.atlas, f), 1e-3, 0)
+    for f in ("valid", "primitive_ids", "tile_ids"):
+        assert np.array_equal(getattr(js4.atlas, f), getattr(ts4.atlas, f)), f
