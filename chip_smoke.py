@@ -8,10 +8,15 @@ Phases, in order; any failure exits non-zero before the result line:
   2. kernels: builds csrc/sinkhorn.cu and csrc/raster.cu with nvcc (one
      process each, started together) and holds each kernel against its
      plain PyTorch version on the card at the main paths' shapes: Sinkhorn
-     in f32 and f64 with a third of the rows at zero mass; the splat
-     rasterizer at P = 4096 on 240 x 320 and 360 x 480 (max |d rgb| <= 1e-5,
-     relative depth error <= 1e-4 where coverage 1 - T >= 0.01, finite,
-     > 20 % of pixels drawn, two launches bit-equal); times both;
+     in f32 and f64 with a third of the rows at zero mass, the launcher's
+     cluster size per shape (checked against ops/sinkhorn.cluster_layout),
+     two launches bit-equal; the splat rasterizer at P = 4096 on 240 x 320
+     and 360 x 480 (max |d rgb| <= 1e-5, relative depth error <= 1e-4 where
+     coverage 1 - T >= 0.01, finite, > 20 % of pixels drawn, two launches
+     bit-equal, and the (pixel, splat) pairs it composites); times both by
+     CUDA events over back-to-back calls and by the kernel's own device
+     time in torch.profiler; prints ptxas registers, spills and shared
+     memory;
   3. flagship path: runner.run_bag over 50 synthetic scans of 8192 points
      at PipelineConfig() defaults; finite poses, ATE gate of bench.py
      (<= 0.30 m, <= 4.0 deg, initial-pose alignment), and exactly
@@ -48,7 +53,7 @@ N_WARMUP = 5
 N_DETERMINISM = 10
 GATE_ATE_TRANS_RMSE_M = 0.30
 GATE_ATE_ROT_RMSE_DEG = 4.0
-SINKHORN_CASES = [(1, 1024, 8), (4, 1024, 8), (1, 1536, 8), (1, 257, 8)]
+SINKHORN_CASES = [(1, 1024, 8), (4, 1024, 8), (1, 1536, 8), (1, 257, 8), (1, 1, 8), (1, 2048, 8), (4, 129, 20)]
 SINKHORN_ARGS = dict(epsilon=0.05, tau_a=1.0, tau_b=1.0, n_iters=50)
 TOL = {"float32": dict(rtol=2e-5, atol=1e-7), "float64": dict(rtol=1e-10, atol=1e-30)}
 RASTER_CASES = [(4096, 240, 320), (4096, 360, 480)]  # render_atlas at RenderParams(); the viewer
@@ -96,23 +101,46 @@ def time_call(fn, n: int = 50) -> float:
 
 def ptxas_summary(log: str):
     """One line per compiled kernel instance from nvcc's -Xptxas -v output:
-    name (template arguments), registers, spill stores."""
+    name (template arguments), registers, spill stores, shared memory."""
     import re
 
     out, name, spill = [], None, ""
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            t = re.search(r"sinkhorn_kernelI([fd])Li(\d+)ELi(\d+)E", m.group(1))
-            name = (f"sinkhorn_kernel<{'float' if t.group(1) == 'f' else 'double'}, KMAX={t.group(2)}, "
-                    f"RMAX={t.group(3)}>") if t else m.group(1)
+            t = re.search(r"sinkhorn_kernelI([fd])Li(\d+)E", m.group(1))
+            name = (f"sinkhorn_kernel<{'float' if t.group(1) == 'f' else 'double'}, KMAX={t.group(2)}>" if t
+                    else "raster_kernel" if "raster_kernel" in m.group(1) else m.group(1))
         elif "spill stores" in line:
             spill = line.strip().split(",")[1].strip()
         elif "Used" in line and "registers" in line and name:
             regs = re.search(r"Used (\d+) registers", line).group(1)
-            out.append(f"{name}: {regs} registers, {spill}")
+            smem = re.search(r"(\d+) bytes smem", line)
+            out.append(f"{name}: {regs} registers, {spill}, {smem.group(1) if smem else 0} bytes smem")
             name = None
     return out
+
+
+def device_ms(fn, kernel: str, n: int = 20):
+    """The kernel's own device time per launch (ms), from torch.profiler's
+    CUDA activity over n calls; None where the trace holds no such kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages() if kernel in e.key]
+    count = sum(e.count for e in rows)
+    total_us = sum(e.device_time_total for e in rows)
+    return total_us / count / 1e3 if count and total_us else None
+
+
+def fmt_us(ms) -> str:
+    return "not measured" if ms is None else f"{ms * 1e3:.1f} us"
 
 
 def bound(n_bytes: float, n_ops: float, peak_ops: float):
@@ -166,28 +194,40 @@ def phase_sinkhorn(device):
     from gcslam_torch.ops import sinkhorn
 
     records = {}
+    n_iters = SINKHORN_ARGS["n_iters"]
     for dtype in (torch.float32, torch.float64):
         name = str(dtype).replace("torch.", "")
         for case_i, (B, N, K) in enumerate(SINKHORN_CASES):
+            cl, threads = sinkhorn.launcher_layout(N)
+            if (cl, threads) != sinkhorn.cluster_layout(N)[::2]:
+                fail(f"sinkhorn N={N}: launcher layout {(cl, threads)} != cluster_layout {sinkhorn.cluster_layout(N)}")
             C, a, b, zero_rows = sinkhorn_inputs(B, N, K, dtype, device, seed=N + case_i)
             out = sinkhorn.sinkhorn_unbalanced(C, a, b, **SINKHORN_ARGS)
+            out2 = sinkhorn.sinkhorn_unbalanced(C, a, b, **SINKHORN_ARGS)
             ref = sinkhorn.sinkhorn_unbalanced_reference(C, a, b, **SINKHORN_ARGS)
             torch.cuda.synchronize()
             if not torch.isfinite(out).all():
                 fail(f"sinkhorn {name} {(B, N, K)}: non-finite output")
-            if out[torch.as_tensor(zero_rows, device=device)].abs().max() != 0:
+            if not torch.equal(out, out2):
+                fail(f"sinkhorn {name} {(B, N, K)}: two launches differ")
+            if zero_rows.any() and out[torch.as_tensor(zero_rows, device=device)].abs().max() != 0:
                 fail(f"sinkhorn {name} {(B, N, K)}: zero-mass rows are not exactly 0")
             err = (out - ref).abs().max().item()
             if not torch.allclose(out, ref, **TOL[name]):
                 fail(f"sinkhorn {name} {(B, N, K)}: max |err| {err:.3e} outside {TOL[name]}")
-            ms = time_call(lambda: sinkhorn.sinkhorn_unbalanced(C, a, b, **SINKHORN_ARGS))
+            call = lambda: sinkhorn.sinkhorn_unbalanced(C, a, b, **SINKHORN_ARGS)  # noqa: E731
+            ms = time_call(call)
             plain_ms = time_call(lambda: sinkhorn.sinkhorn_unbalanced_reference(C, a, b, **SINKHORN_ARGS))
+            dev_ms = device_ms(call, "sinkhorn_kernel")
             peak = PEAK_F64_PER_S if dtype == torch.float64 else PEAK_F32_PER_S
-            bound_ms, bound_by = sinkhorn_bound(B, N, K, SINKHORN_ARGS["n_iters"], C.element_size(), peak)
-            print(f"sinkhorn {name} B={B} N={N} K={K}: max|err| {err:.3e} kernel {ms * 1e3:.1f} us/call, "
-                  f"plain {plain_ms * 1e3:.1f} us/call, bound {bound_ms * 1e3:.3f} us ({bound_by})")
-            if B == 1 and N in (1024, 1536) and dtype == torch.float64:  # the main paths' dtype
-                records[N] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, bound_ms=bound_ms, bound_by=bound_by)
+            bound_ms, bound_by = sinkhorn_bound(B, N, K, n_iters, C.element_size(), peak)
+            print(f"sinkhorn {name} B={B} N={N} K={K}: cluster {cl} x {threads} threads, max|err| {err:.3e}, "
+                  f"kernel {ms * 1e3:.1f} us/call (events), device {fmt_us(dev_ms)}, plain {plain_ms * 1e3:.1f} "
+                  f"us/call, bound {bound_ms * 1e3:.3f} us ({bound_by})")
+            if B == 1 and N in (1024, 1536) and dtype == torch.float64:  # the main paths' shapes
+                per_iter_us = None if dev_ms is None else 1e3 * dev_ms / n_iters
+                records[N] = dict(ms=ms, device_ms=dev_ms, per_iter_us=per_iter_us, cluster=cl, threads=threads,
+                                  plain_ms=plain_ms, max_abs_err=err, bound_ms=bound_ms, bound_by=bound_by)
     return records
 
 
@@ -209,21 +249,35 @@ def raster_scene(P: int, H: int, W: int, device, seed: int):
     return s, params
 
 
-def raster_pairs(s, H: int, W: int, log_clip: float) -> int:
-    """(pixel, splat) pairs with a nonzero weight (q > log_clip, alpha > 0):
-    the work these inputs need."""
+def raster_work(s, H: int, W: int, log_clip: float, tile: int = 16):
+    """(pairs, box_pairs, warp_share): the (pixel, splat) pairs in the image
+    with a nonzero weight (q > log_clip, alpha > 0), the work these inputs
+    need; the (pixel, splat) pairs the kernel composites (each tile's pixels
+    times the splats whose clip-radius box meets the tile); and the share of
+    those tiles' (warp, splat) pairs, a warp being two 16-pixel rows, in
+    which some pixel has q > log_clip (the rest the kernel skips)."""
     import torch
 
-    us = torch.arange(W, dtype=torch.float32, device=s.u0.device)[None, None, :]
-    vs = torch.arange(H, dtype=torch.float32, device=s.u0.device)[None, :, None]
-    n = 0
+    dev = s.u0.device
+    ty, tx = -(-H // tile), -(-W // tile)
+    x0 = (tile * torch.arange(tx, device=dev, dtype=torch.float32))[None, None, :]
+    y0 = (tile * torch.arange(ty, device=dev, dtype=torch.float32))[None, :, None]
+    u, v, r, al = (x[:, None, None] for x in (s.u0, s.v0, s.radius, s.alpha))
+    hit = ~(~(al > 0) | (u + r < x0) | (u - r > x0 + tile - 1) | (v + r < y0) | (v - r > y0 + tile - 1))
+    us = torch.arange(tx * tile, dtype=torch.float32, device=dev)[None, None, :]
+    vs = torch.arange(ty * tile, dtype=torch.float32, device=dev)[None, :, None]
+    pairs = warp_hits = 0
     for i in range(0, s.u0.shape[0], 64):
         sl = slice(i, i + 64)
         du, dv = us - s.u0[sl, None, None], vs - s.v0[sl, None, None]
         a, b, c = (s.inv2[sl, k, None, None] for k in range(3))
         q = -0.5 * (a * du * du + 2.0 * b * du * dv + c * dv * dv)
-        n += int(((q > log_clip) & (s.alpha[sl, None, None] > 0)).sum())
-    return n
+        nz = q > log_clip
+        pairs += int((nz & (s.alpha[sl, None, None] > 0))[:, :H, :W].sum())
+        warp_nz = nz.view(-1, ty, tile // 2, 2, tx, tile).any(5).any(3)  # (splats, ty, warps, tx)
+        warp_hits += int((warp_nz & hit[sl, :, None, :]).sum())
+    n_hit = int(hit.sum())
+    return pairs, n_hit * tile * tile, warp_hits / max(n_hit * tile // 2, 1)
 
 
 def check_raster(s, H, W, log_clip, label):
@@ -266,14 +320,19 @@ def phase_raster(device):
         err, drawn = check_raster(s, H, W, params.log_clip, label)
         if drawn <= 0.2:
             fail(f"raster {label}: only {100 * drawn:.1f} % of pixels drawn")
-        ms = time_call(lambda: raster.composite_splats(s, H, W, params.log_clip), n=50)
+        call = lambda: raster.composite_splats(s, H, W, params.log_clip)  # noqa: E731
+        ms = time_call(call, n=50)
+        dev_ms = device_ms(call, "raster_kernel")
         plain_ms = time_call(lambda: raster.composite_splats_reference(s, H, W, params.log_clip), n=2)
-        pairs = raster_pairs(s, H, W, params.log_clip)
+        pairs, box_pairs, warp_share = raster_work(s, H, W, params.log_clip)
         bound_ms, bound_by = bound(P * 11 * 4 + H * W * 5 * 4, RASTER_FLOPS_PER_PAIR * pairs, PEAK_F32_PER_S)
-        print(f"raster {label}: kernel {ms * 1e3:.1f} us/call, plain {plain_ms * 1e3:.1f} us/call, "
-              f"{pairs} pairs with w > 0, bound {bound_ms * 1e3:.3f} us ({bound_by})")
+        print(f"raster {label}: kernel {ms * 1e3:.1f} us/call (events), device {fmt_us(dev_ms)}, "
+              f"plain {plain_ms * 1e3:.1f} us/call, {pairs} pairs with w > 0, bound {bound_ms * 1e3:.3f} us "
+              f"({bound_by}); {box_pairs} pairs in the tiles' clip boxes, {100 * warp_share:.1f} % of their "
+              f"(warp, splat) pairs with some w > 0")
         if (H, W) == (240, 320):
-            record = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, bound_ms=bound_ms, bound_by=bound_by)
+            record = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, max_abs_err=err, bound_ms=bound_ms,
+                          bound_by=bound_by)
     return record
 
 
@@ -493,12 +552,13 @@ def main() -> None:
     kernels = [
         dict(name="sinkhorn_unbalanced", route="cuda", source="gcslam_torch/csrc/sinkhorn.cu",
              replaces="gcslam_tpu/ops/sinkhorn_pallas.py:59", launches=launches_cam,
-             max_abs_err=sk[1536]["max_abs_err"], ms=sk[1536]["ms"], plain_ms=sk[1536]["plain_ms"],
-             bound_ms=sk[1536]["bound_ms"], bound_by=sk[1536]["bound_by"], library_ms=None),
+             max_abs_err=sk[1536]["max_abs_err"], ms=sk[1536]["ms"], device_ms=sk[1536]["device_ms"],
+             plain_ms=sk[1536]["plain_ms"], bound_ms=sk[1536]["bound_ms"], bound_by=sk[1536]["bound_by"],
+             library_ms=None),
         dict(name="render_splats_raster", route="cuda", source="gcslam_torch/csrc/raster.cu",
              replaces="gcslam_tpu/outputs/rendering_pallas.py:128", launches=launches_raster,
-             max_abs_err=max(rs["max_abs_err"], err_render), ms=rs["ms"], plain_ms=rs["plain_ms"],
-             bound_ms=rs["bound_ms"], bound_by=rs["bound_by"], library_ms=None),
+             max_abs_err=max(rs["max_abs_err"], err_render), ms=rs["ms"], device_ms=rs["device_ms"],
+             plain_ms=rs["plain_ms"], bound_ms=rs["bound_ms"], bound_by=rs["bound_by"], library_ms=None),
     ]
     print(json.dumps({"paths": {
         "flagship": {"ms_per_scan": ms_flag, "n_scans": N_SCANS, "n_points": N_POINTS,
@@ -506,7 +566,7 @@ def main() -> None:
                      "sinkhorn_launches": launches_flag, "sinkhorn_1024": sk[1024]},
         "camera": {"ms_per_scan": ms_cam, "frontend_ms_per_frame": fe_ms, "n_scans": N_SCANS,
                    "ate_m": ate_cam["translation"]["rmse"], "ate_deg": ate_cam["rotation_deg"]["rmse"],
-                   "sinkhorn_launches": launches_cam},
+                   "sinkhorn_launches": launches_cam, "sinkhorn_1536": sk[1536]},
         "render": [{"vantage": n, "covered": c, "ms": ms} for n, c, ms in renders],
     }}))
     print(json.dumps({"kernels": kernels}))

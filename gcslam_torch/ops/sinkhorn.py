@@ -4,10 +4,11 @@ the JAX package's ops/sinkhorn_pallas.py) and its plain PyTorch version.
 
 `sinkhorn_unbalanced` takes C (N, K) or (B, N, K), a (N,)/(B, N) and
 b (K,)/(B, K). On CUDA tensors it launches the kernel — one launch for all
-n_iters iterations, one thread block per problem — or raises; on CPU
-tensors it runs `sinkhorn_unbalanced_reference`. The kernel is compiled
-with nvcc on first use into csrc/build/ (a plain C interface loaded with
-ctypes, ops/cuda_build.py) from the source in this checkout.
+n_iters iterations, one thread-block cluster per problem (`cluster_layout`)
+— or raises; on CPU tensors it runs `sinkhorn_unbalanced_reference`. The
+kernel is compiled with nvcc on first use into csrc/build/ (a plain C
+interface loaded with ctypes, ops/cuda_build.py) from the source in this
+checkout.
 """
 
 from __future__ import annotations
@@ -19,11 +20,15 @@ import torch
 from gcslam_torch.ops.cuda_build import KernelLibrary, LaunchCounter
 
 MAX_K = 32
-MAX_N = 2048  # 256 threads x 8 register-resident rows per thread
+MAX_CLUSTER = 8  # blocks per problem: the portable cluster size
+ROWS_PER_BLOCK = 128  # rows per block the launcher aims at before the cluster is full
+MAX_N = 2048  # 8 blocks x 256 threads x one register-resident row per thread
 
 _ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_double] * 3 + [ctypes.c_int, ctypes.c_void_p]
+_INT_P = ctypes.POINTER(ctypes.c_int)
 _KERNEL = KernelLibrary("sinkhorn.cu", "gcslam_sinkhorn",
-                        {"gcslam_sinkhorn_f32": _ARGS, "gcslam_sinkhorn_f64": _ARGS})
+                        {"gcslam_sinkhorn_f32": _ARGS, "gcslam_sinkhorn_f64": _ARGS,
+                         "gcslam_sinkhorn_layout": [ctypes.c_int, _INT_P, _INT_P]})
 COUNTER = LaunchCounter()
 
 
@@ -36,6 +41,28 @@ def build():
 def build_log() -> str:
     """nvcc's output of the build made by this process ('' if none was needed)."""
     return _KERNEL.build_log
+
+
+def cluster_layout(N: int):
+    """(blocks per cluster, rows per block, threads per block) for an N-row
+    problem, as the kernel's launcher picks them (csrc/sinkhorn.cu layout()):
+    the smallest power of two of blocks, at most 8, that leaves each at most
+    128 rows; then the rows spread evenly, one per thread, in whole warps."""
+    cl = 1
+    while cl < MAX_CLUSTER and cl * ROWS_PER_BLOCK < N:
+        cl *= 2
+    rows = -(-N // cl)
+    return cl, rows, 32 * -(-rows // 32)
+
+
+def launcher_layout(N: int):
+    """(blocks per cluster, threads per block) that the built launcher picks
+    for N rows (needs the built library)."""
+    cl, threads = ctypes.c_int(), ctypes.c_int()
+    err = _KERNEL.lib().gcslam_sinkhorn_layout(int(N), ctypes.byref(cl), ctypes.byref(threads))
+    if err != 0:
+        raise ValueError(f"no cluster layout for N={N}: cudaError_t {err}")
+    return cl.value, threads.value
 
 
 def _scalars(epsilon: float, tau_a: float, tau_b: float):

@@ -44,17 +44,36 @@ def _case(B, N, K, seed):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("B,N,K", [(None, 1024, 8), (4, 1024, 8), (None, 1536, 8), (None, 257, 8),
-                                   (2, 100, 20)])
+                                   (2, 100, 20), (None, 1, 8), (None, 129, 8), (None, 2048, 8), (4, 257, 20)])
 def test_kernel_matches_plain(cuda, dtype, B, N, K):
+    """One cluster per problem (1 to 8 blocks by N): the plain loop's result,
+    zero-mass rows exactly 0, and two launches bit-equal."""
     C, a, b, zero = _case(B, N, K, seed=N + K)
     t = [torch.as_tensor(x, dtype=dtype, device=cuda) for x in (C, a, b)]
     before = sinkhorn.COUNTER.launches
     out = sinkhorn.sinkhorn_unbalanced(*t, *ARGS)
+    out2 = sinkhorn.sinkhorn_unbalanced(*t, *ARGS)
     ref = sinkhorn.sinkhorn_unbalanced_reference(*t, *ARGS)
     torch.cuda.synchronize()
-    assert sinkhorn.COUNTER.launches == before + 1
+    assert sinkhorn.COUNTER.launches == before + 2
+    assert torch.equal(out, out2)
     torch.testing.assert_close(out, ref, **TOL[dtype])
     assert torch.all(out[torch.as_tensor(zero, device=cuda)] == 0)
+
+
+def test_launcher_layout_is_the_cluster_layout(cuda):
+    for N in (1, 129, 257, 1024, 1025, 1536, 2048):
+        cl, _, threads = sinkhorn.cluster_layout(N)
+        assert sinkhorn.launcher_layout(N) == (cl, threads)
+
+
+@pytest.mark.parametrize("n_iters", [0, 1])
+def test_kernel_at_few_iterations(cuda, n_iters):
+    C, a, b, _ = _case(None, 1024, 8, seed=3)
+    t = [torch.as_tensor(x, device=cuda) for x in (C, a, b)]
+    args = (0.05, 1.0, 1.0, n_iters)
+    torch.testing.assert_close(sinkhorn.sinkhorn_unbalanced(*t, *args),
+                               sinkhorn.sinkhorn_unbalanced_reference(*t, *args), **TOL[torch.float64])
 
 
 def test_kernel_refuses_cpu_and_oversized_inputs(cuda):
@@ -110,6 +129,25 @@ def test_raster_kernel_matches_plain(cuda, P, H, W):
     for got, want in zip((rgb, depth, T), ref):
         assert torch.isfinite(got).all()
         torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("P,H,W", [(1, 48, 64), (257, 64, 80), (4096, 240, 320)])
+def test_raster_kernel_leaves_an_untouched_tile_empty(cuda, P, H, W):
+    """Splats moved clear of the top-left tile: there the kernel's ordered
+    compaction finds no hit in any chunk (rgb 0, depth 0, T 1); elsewhere it
+    equals the plain compositor; repeats are bit-equal."""
+    s, p = _splats(P, H, W, cuda, seed=P)
+    near = (s.u0 - s.radius <= 15) & (s.v0 - s.radius <= 15)
+    s = s._replace(u0=torch.where(near, 17.0 + s.radius, s.u0).contiguous())
+    out = raster.composite_splats(s, H, W, p.log_clip)
+    out2 = raster.composite_splats(s, H, W, p.log_clip)
+    ref = raster.composite_splats_reference(s, H, W, p.log_clip)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(out, out2))
+    for got, want in zip(out, ref):
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    rgb, depth, T = out
+    assert not rgb[:16, :16].any() and not depth[:16, :16].any() and bool((T[:16, :16] == 1).all())
 
 
 def test_raster_kernel_refuses_what_it_does_not_take(cuda):

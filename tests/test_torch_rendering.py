@@ -132,6 +132,75 @@ def test_tiled_skip_equals_the_plain_compositor():
         torch.testing.assert_close(b, a, rtol=0, atol=1e-6)
 
 
+def composite_tile(s, idx, x0, y0, log_clip, tile=16):
+    """The plain compositor's operations, in its order, over one tile's
+    pixel coordinates and the splats `idx` (in that order)."""
+    us = torch.arange(x0, x0 + tile, dtype=torch.float32)[None, :]
+    vs = torch.arange(y0, y0 + tile, dtype=torch.float32)[:, None]
+    rgb, depth, T = torch.zeros(tile, tile, 3), torch.zeros(tile, tile), torch.ones(tile, tile)
+    b2 = 2.0 * s.inv2[:, 1]
+    for p in idx.tolist():
+        du, dv = us - s.u0[p], vs - s.v0[p]
+        q = -0.5 * (s.inv2[p, 0] * du * du + b2[p] * du * dv + s.inv2[p, 2] * dv * dv)
+        w = torch.where(q > log_clip, torch.exp(q), 0.0) * s.alpha[p]
+        contrib = w * T
+        rgb = rgb + contrib[..., None] * s.rgb[p]
+        depth = depth + contrib * s.z[p]
+        T = T * (1.0 - w)
+    return rgb, depth, T
+
+
+def ordered_compaction(hit, warp=32):
+    """The kernel's slots for one chunk: each hit's rank among its warp's
+    hits (ballot + popc of the lower lanes) plus the hits of the warps
+    before it; returns the chunk-local indices in slot order."""
+    h = hit.long()
+    pad = (-h.numel()) % warp
+    hw = torch.nn.functional.pad(h, (0, pad)).view(-1, warp)
+    rank = torch.cumsum(hw, 1) - hw
+    offset = torch.cumsum(hw.sum(1), 0) - hw.sum(1)
+    slot = (rank + offset[:, None]).view(-1)[: h.numel()]
+    staged = torch.full((int(h.sum()),), -1, dtype=torch.long)
+    staged[slot[hit]] = torch.nonzero(hit).view(-1)
+    return staged
+
+
+@pytest.mark.parametrize("chunk", [256, 120, 50])
+def test_chunked_compaction_equals_the_plain_compositor(chunk):
+    """The kernel's schedule in plain PyTorch: per 16 x 16 tile, the splats in
+    chunks (P = 120 below, equal to and not a multiple of the chunk), each
+    chunk's tile test, its ordered compaction and the composite of its hits
+    in slot order. Bit-equal to the plain compositor over the whole frame;
+    the top-left tile, which no splat touches, stays empty."""
+    sc = scene(120, 3)
+    p = tr.RenderParams(**params(0.0))
+    s = tr.prepare_screen_splats(*[torch.as_tensor(x) for x in sc], torch.as_tensor(CAM), p)
+    # move the splats whose clip box meets the top-left tile clear of it
+    near = (s.u0 - s.radius <= 15) & (s.v0 - s.radius <= 15)
+    s = s._replace(u0=torch.where(near, 17.0 + s.radius, s.u0))
+    full = raster.composite_splats_reference(s, p.height, p.width, p.log_clip)
+    tiled = [torch.zeros_like(x) for x in full]
+    n_hits = {}
+    for y0 in range(0, p.height, 16):
+        for x0 in range(0, p.width, 16):
+            order = []
+            for base in range(0, s.u0.shape[0], chunk):
+                sl = slice(base, base + chunk)
+                su, sv, r, al = s.u0[sl], s.v0[sl], s.radius[sl], s.alpha[sl]
+                miss = ~(al > 0) | (su + r < x0) | (su - r > x0 + 15) | (sv + r < y0) | (sv - r > y0 + 15)
+                staged = ordered_compaction(~miss)
+                assert torch.equal(staged, torch.nonzero(~miss).view(-1))  # slots keep splat order
+                order.append(base + staged)
+            idx = torch.cat(order)
+            n_hits[y0, x0] = idx.numel()
+            for acc, o in zip(tiled, composite_tile(s, idx, x0, y0, p.log_clip)):
+                acc[y0:y0 + 16, x0:x0 + 16] = o
+    assert n_hits[0, 0] == 0 and max(n_hits.values()) > 0
+    for a, b in zip(full, tiled):
+        assert torch.equal(b, a)
+    assert torch.equal(full[2][:16, :16], torch.ones(16, 16)) and not full[0][:16, :16].any()
+
+
 @pytest.mark.parametrize("P", [48, 200])
 def test_render_splats_matches_the_scan_compositor(P):
     """No texture: the jitted reference and the port differ by f32 rounding."""

@@ -104,3 +104,69 @@ def test_wrapper_checks_refuse_bad_inputs(bad, match):
         C = torch.zeros(8, 64, dtype=torch.float64).T
     with pytest.raises((ValueError, TypeError), match=match):
         sinkhorn._check(C, a, b)
+
+
+@pytest.mark.parametrize("N,expected", [(1, (1, 1, 32)), (129, (2, 65, 96)), (257, (4, 65, 96)),
+                                        (1024, (8, 128, 128)), (1025, (8, 129, 160)), (1536, (8, 192, 192)),
+                                        (2048, (8, 256, 256))])
+def test_cluster_layout(N, expected):
+    """Blocks per cluster, rows per block, threads per block: every row has
+    its thread, a power-of-two cluster of at most 8, whole warps."""
+    cl, rows, threads = sinkhorn.cluster_layout(N)
+    assert (cl, rows, threads) == expected
+    assert cl * rows >= N and rows <= threads <= 256 and threads % 32 == 0
+
+
+def cluster_schedule(C, a, b, epsilon, tau_a, tau_b, n_iters):
+    """The CUDA kernel's schedule in plain PyTorch, one problem: the rows
+    split over the cluster's blocks (sinkhorn.cluster_layout), one per
+    thread; each warp's column partials; the cluster's (rank, warp) partials
+    summed in the kernel's order (lane group g over ranks g, g + 32/KMAX, ...,
+    warps in order, then a pairwise tree over the groups); the exp/log row
+    and column updates, zero masses flagged to exactly 0."""
+    N, K = C.shape
+    eps, ua, vb = sinkhorn._scalars(epsilon, tau_a, tau_b)
+    cl, rows, threads = sinkhorn.cluster_layout(N)
+    warps, groups = threads // 32, 32 // (8 if K <= 8 else 32)
+    t = torch.arange(threads)
+    row = torch.arange(cl)[:, None] * rows + t  # (cl, threads): block rank, thread
+    ok = (t < rows) & (row < N)
+    Kmat = torch.exp(-C / eps)
+    Kp = torch.where(ok[..., None], Kmat[row.clamp(max=N - 1)], 0.0)
+    ap = torch.where(ok, a[row.clamp(max=N - 1)], 0.0)
+    log_a, log_b = torch.log(ap), torch.log(b)
+    u, v = torch.ones_like(ap), torch.ones_like(b)
+    for _ in range(n_iters):
+        kv = (Kp * v).sum(-1)
+        u = torch.where(ap == 0, 0.0, torch.exp(ua * (log_a - torch.log(kv + 1e-12))))
+        part = (Kp * u[..., None]).view(cl, warps, 32, K).sum(2)
+        sums = []
+        for g in range(groups):
+            s = torch.zeros_like(b)
+            for r in range(g, cl, groups):
+                for w in range(warps):
+                    s = s + part[r, w]
+            sums.append(s)
+        while len(sums) > 1:
+            sums = [sums[j] + sums[j + 1] for j in range(0, len(sums), 2)]
+        v = torch.where(b == 0, 0.0, torch.exp(vb * (log_b - torch.log(sums[0] + 1e-12))))
+    u_rows = torch.zeros_like(a).index_put_((row[ok],), u[ok])
+    return u_rows[:, None] * Kmat * v[None, :]
+
+
+@pytest.mark.parametrize("K", [8, 20])
+@pytest.mark.parametrize("N", [1, 129, 257, 1025])
+def test_cluster_schedule_matches_plain_and_xla_loop_f64(N, K):
+    """The kernel's cluster split, rank-order sums and exp/log updates hold
+    the plain loop and the JAX package's f64 XLA loop at rtol 1e-10."""
+    C, a, b, zero = _case(N, K, seed=N + K, dtype=np.float64)
+    if N == 1:
+        a = np.ones(1)  # one row with mass
+    t = [torch.as_tensor(x) for x in (C, a, b)]
+    out = cluster_schedule(*t, *ARGS)
+    ref = sinkhorn.sinkhorn_unbalanced_reference(*t, *ARGS)
+    xla = np.asarray(_sinkhorn_unbalanced(jnp.asarray(C), jnp.asarray(a), jnp.asarray(b), *ARGS))
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), **TOL64)
+    np.testing.assert_allclose(out.numpy(), xla, **TOL64)
+    if N > 1:
+        assert zero.any() and torch.all(out[torch.as_tensor(zero)] == 0)
