@@ -33,17 +33,37 @@ Phases, in order; any failure exits non-zero before the result line:
      render, finite, bit-equal repeats, the kernel against the plain
      compositor on the same splats;
   7. viewer: splat_export + TUM trajectory of the camera run, then
-     tools/view_splats on them (last pose and overview), .npy outputs.
-Before the last line it prints {"kernels": [...]}; the last line is
-{"ok": true, "device": {...}}. Files go to results/chip_smoke/.
+     tools/view_splats on them (last pose and overview), .npy outputs;
+  8. per-hypothesis path: run_bag over the flagship's 50 scans at
+     PipelineConfig(map_share_extraction=False, map_gn_shared=False):
+     finite poses, the ATE gate, ATE within 0.05 m of the flagship's
+     (tests/test_pipeline.py:395), exactly map_icp_iters x n_scans Sinkhorn
+     launches, every one on (K_HYP, 1024, 8); kernel launches per scan and
+     device busy share from torch.profiler over 3 scans, beside the
+     flagship's; the shared-extraction variant on 10 scans, same launch rule;
+  9. live modes: run_chunked(chunk=10) over the flagship's 50 scans
+     bit-equal to phase 3's run_bag (chunked ATE gate); run_stream over 10
+     scans with the status and map streams (files parse, poses equal to
+     run_bag's); the loitering world (60 x 1024 points, drifting odometry,
+     no map) through run_chunked(chunk=8) with the loop detector: a loop
+     fires, max xy error < 1.5 m; save_state / load_state of the chunked
+     run's final state bit-equal on the card;
+ 10. filter options, 20 scans each at production budgets:
+     imu_mode="evidence", odom_pose_mode="relative", k_shortlist=0,
+     ot_subtract_row_min=True: finite poses, the ATE gate, exactly
+     map_icp_iters x n_scans launches, each on (1024, 8).
+Before the last line it prints {"paths": ...} and {"kernels": [...]}; the
+last line is {"ok": true, "device": {...}}. Files go to results/chip_smoke/.
 """
 
+import contextlib
 import json
 import os
 import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -66,6 +86,23 @@ PEAK_F32_PER_S = 67e12
 PEAK_F64_PER_S = 34e12
 RASTER_FLOPS_PER_PAIR = 21  # ~20 FLOPs and one expf per (pixel, splat) pair with w > 0
 OUT_DIR = os.path.join("results", "chip_smoke")
+PER_HYP = dict(map_share_extraction=False, map_gn_shared=False)
+PER_HYP_ATE_BOUND_M = 0.05  # |ATE per-hypothesis - ATE flagship|, tests/test_pipeline.py:395
+N_SHARED_EXTRACTION_SCANS = 10
+N_PROFILE_SCANS = 3
+CHUNK = 10
+GATE_CHUNK_ATE_TRANS_RMSE_M = 0.30  # bench.py
+N_STREAM_SCANS = 10
+LOITER = dict(n_scans=60, n_points=1024, odom_drift_pos_per_m=0.08, odom_drift_yaw_per_m=0.04, seed=0)
+LOOP_CFG = dict(keyframe_every=5, min_index_gap=15, max_revisit_dist_m=3.0, cooldown_scans=10)
+LOITER_MAX_XY_M = 1.5  # tests/test_pipeline.py::test_chunked_loop_closure_fires
+N_OPTION_SCANS = 20
+OPTIONS = {
+    "imu_evidence": dict(imu_mode="evidence"),
+    "odom_relative": dict(odom_pose_mode="relative"),
+    "full_pool": dict(k_shortlist=0),
+    "row_min": dict(ot_subtract_row_min=True),
+}
 
 
 def fail(msg: str) -> None:
@@ -188,8 +225,9 @@ def sinkhorn_bound(B: int, N: int, K: int, n_iters: int, itemsize: int, peak: fl
 
 
 def phase_sinkhorn(device):
-    """Sinkhorn kernel vs plain on the card; returns the records at the
-    flagship (1024 rows) and camera-path (1536 rows) shapes, f64."""
+    """Sinkhorn kernel vs plain on the card; returns the records, keyed by
+    (B, N), at the flagship (1, 1024), camera-path (1, 1536) and
+    per-hypothesis (4, 1024) shapes, f64."""
     import torch
     from gcslam_torch.ops import sinkhorn
 
@@ -224,9 +262,9 @@ def phase_sinkhorn(device):
             print(f"sinkhorn {name} B={B} N={N} K={K}: cluster {cl} x {threads} threads, max|err| {err:.3e}, "
                   f"kernel {ms * 1e3:.1f} us/call (events), device {fmt_us(dev_ms)}, plain {plain_ms * 1e3:.1f} "
                   f"us/call, bound {bound_ms * 1e3:.3f} us ({bound_by})")
-            if B == 1 and N in (1024, 1536) and dtype == torch.float64:  # the main paths' shapes
+            if (B, N) in ((1, 1024), (1, 1536), (4, 1024)) and dtype == torch.float64:  # the main paths'
                 per_iter_us = None if dev_ms is None else 1e3 * dev_ms / n_iters
-                records[N] = dict(ms=ms, device_ms=dev_ms, per_iter_us=per_iter_us, cluster=cl, threads=threads,
+                records[(B, N)] = dict(ms=ms, device_ms=dev_ms, per_iter_us=per_iter_us, cluster=cl, threads=threads,
                                   plain_ms=plain_ms, max_abs_err=err, bound_ms=bound_ms, bound_by=bound_by)
     return records
 
@@ -336,6 +374,25 @@ def phase_raster(device):
     return record
 
 
+@contextlib.contextmanager
+def sinkhorn_shapes():
+    """Records the C shape of every Sinkhorn call the association makes."""
+    from gcslam_torch.ops import association
+
+    shapes = set()
+    kernel_fn = association.sinkhorn_unbalanced
+
+    def recording(C, *args, **kwargs):
+        shapes.add(tuple(C.shape))
+        return kernel_fn(C, *args, **kwargs)
+
+    association.sinkhorn_unbalanced = recording
+    try:
+        yield shapes
+    finally:
+        association.sinkhorn_unbalanced = kernel_fn
+
+
 def replay(device, cfg, run, label):
     """Warm-up, then one timed run_bag over all scans; returns
     (final state, outputs, ms/scan, Sinkhorn launches, ATE)."""
@@ -377,8 +434,8 @@ def phase_flagship(device):
     run = generate(SyntheticConfig(n_scans=N_SCANS, n_points=N_POINTS), device=device)
     print(f"generated {N_SCANS} scans x {N_POINTS} points in {time.perf_counter() - t0:.1f} s")
     cfg = PipelineConfig()
-    _, _, ms_scan, launches, ate = replay(device, cfg, run, "flagship path")
-    return run, cfg, ms_scan, launches, ate
+    _, out, ms_scan, launches, ate = replay(device, cfg, run, "flagship path")
+    return run, cfg, out, ms_scan, launches, ate
 
 
 def phase_determinism(device, run, cfg) -> None:
@@ -420,7 +477,6 @@ def frontend_ms(device, cfg_syn) -> float:
 def phase_camera(device):
     from gcslam_torch.frontend.synthetic import SyntheticConfig, generate
     from gcslam_torch.models.config import PipelineConfig
-    from gcslam_torch.ops import association
 
     cfg_syn = SyntheticConfig(n_scans=N_SCANS, n_points=N_POINTS, with_camera=True)
     t0 = time.perf_counter()
@@ -434,19 +490,9 @@ def phase_camera(device):
         fail(f"camera frontend found only {min(n_cam)} features in a frame")
 
     # record the Sinkhorn problem shapes of the camera path
-    shapes = set()
-    kernel_fn = association.sinkhorn_unbalanced
-
-    def recording(C, *args, **kwargs):
-        shapes.add(tuple(C.shape))
-        return kernel_fn(C, *args, **kwargs)
-
-    association.sinkhorn_unbalanced = recording
-    try:
+    with sinkhorn_shapes() as shapes:
         cfg = PipelineConfig(with_camera=True)
         state, out, ms_scan, launches, ate = replay(device, cfg, run, "camera path")
-    finally:
-        association.sinkhorn_unbalanced = kernel_fn
     expected = (cfg.n_surfel + cfg.n_feat, cfg.k_assoc)
     if shapes != {expected}:
         fail(f"camera path: sinkhorn problem shapes {sorted(shapes)}, expected {expected}")
@@ -524,6 +570,203 @@ def phase_viewer(state, out, run):
         fail("viewer: the renders did not go through the raster kernel")
 
 
+def profile_scans(device, cfg, batches, n: int = N_PROFILE_SCANS):
+    """torch.profiler over n scans after a 5-scan warm-up: kernel launches
+    per scan (runtime launch calls), device kernels per scan, and the
+    device's busy share of the profiled span (kernels, copies and sets)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from gcslam_torch.models import runner
+
+    state, _ = runner.run_bag(batches[:N_WARMUP], cfg, device=device)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        runner.run_bag(batches[N_WARMUP:N_WARMUP + n], cfg, state=state, device=device)
+        torch.cuda.synchronize()
+        span_ms = 1e3 * (time.perf_counter() - t0)
+    rows = prof.key_averages()
+    launch_calls = sum(e.count for e in rows if e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")))
+    dev = [e for e in rows if getattr(e, "device_type", None) == DeviceType.CUDA]
+    kernels = sum(e.count for e in dev if not e.key.startswith(("Memcpy", "Memset")))
+    busy_us = sum(getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0) for e in dev)
+    return dict(launch_calls_per_scan=launch_calls / n if launch_calls else None,
+                device_kernels_per_scan=kernels / n if kernels else None,
+                device_busy_ms_per_scan=busy_us / 1e3 / n if busy_us else None,
+                profiled_span_ms_per_scan=span_ms / n,
+                device_busy_share=(busy_us / 1e3) / span_ms if busy_us else None)
+
+
+def fmt_profile(p) -> str:
+    def f(x, spec):
+        return "not measured" if x is None else format(x, spec)
+
+    return (f"{f(p['launch_calls_per_scan'], '.0f')} launch calls/scan, {f(p['device_kernels_per_scan'], '.0f')} "
+            f"device kernels/scan, device busy {f(p['device_busy_ms_per_scan'], '.2f')} ms of "
+            f"{p['profiled_span_ms_per_scan']:.1f} ms per profiled scan "
+            f"({f(None if p['device_busy_share'] is None else 100 * p['device_busy_share'], '.1f')} %)")
+
+
+def phase_per_hypothesis(device, run, ate_flag):
+    """The per-hypothesis map branch at production budgets; returns its
+    record, the shared-extraction variant's and the Sinkhorn launches."""
+    import torch
+    from gcslam_torch import constants as C
+    from gcslam_torch.models import runner
+    from gcslam_torch.models.config import PipelineConfig
+    from gcslam_torch.ops import sinkhorn
+
+    cfg = PipelineConfig(**PER_HYP)
+    expected = (C.K_HYP, cfg.n_surfel, cfg.k_assoc)
+    with sinkhorn_shapes() as shapes:
+        _, _, ms_scan, launches, ate = replay(device, cfg, run, "per-hypothesis path")
+    if shapes != {expected}:
+        fail(f"per-hypothesis path: sinkhorn problem shapes {sorted(shapes)}, expected {expected}")
+    d_ate = abs(ate["translation"]["rmse"] - ate_flag["translation"]["rmse"])
+    print(f"per-hypothesis path: every sinkhorn launch is {expected} (one per GN round for all hypotheses); "
+          f"|ATE - flagship ATE| {d_ate:.4f} m (bound {PER_HYP_ATE_BOUND_M} m)")
+    if d_ate > PER_HYP_ATE_BOUND_M:
+        fail(f"per-hypothesis path: ATE {d_ate:.4f} m from the flagship's")
+    prof = profile_scans(device, cfg, run.batches)
+    prof_flag = profile_scans(device, PipelineConfig(), run.batches)
+    print(f"profile over {N_PROFILE_SCANS} scans, per-hypothesis: {fmt_profile(prof)}")
+    print(f"profile over {N_PROFILE_SCANS} scans, flagship: {fmt_profile(prof_flag)}")
+
+    # the shared-extraction level: one extraction, a GN chain per hypothesis
+    cfg_se = PipelineConfig(map_share_extraction=True, map_gn_shared=False)
+    n = N_SHARED_EXTRACTION_SCANS
+    with sinkhorn_shapes() as shapes_se:
+        sinkhorn.COUNTER.reset()
+        t0 = time.perf_counter()
+        _, out_se = runner.run_bag(run.batches[:n], cfg_se, device=device)
+        torch.cuda.synchronize()
+        ms_se = 1e3 * (time.perf_counter() - t0) / n
+        launches_se = sinkhorn.COUNTER.launches
+    if not torch.isfinite(out_se.pose).all():
+        fail("shared-extraction path: non-finite poses")
+    if launches_se != cfg_se.map_icp_iters * n or shapes_se != {expected}:
+        fail(f"shared-extraction path: {launches_se} launches on {sorted(shapes_se)}, expected "
+             f"{cfg_se.map_icp_iters * n} on {expected}")
+    print(f"shared-extraction path: {ms_se:.2f} ms/scan over {n} scans (cold, no warm-up), {launches_se} "
+          f"sinkhorn launches on {expected}")
+    record = {"ms_per_scan": ms_scan, "n_scans": N_SCANS, "ate_m": ate["translation"]["rmse"],
+              "ate_deg": ate["rotation_deg"]["rmse"], "ate_minus_flagship_m": d_ate,
+              "sinkhorn_launches": launches, "sinkhorn_shape": list(expected), "profile": prof,
+              "flagship_profile": prof_flag}
+    record_se = {"ms_per_scan_cold": ms_se, "n_scans": n, "sinkhorn_launches": launches_se,
+                 "sinkhorn_shape": list(expected)}
+    return record, record_se, launches + launches_se
+
+
+def phase_live(device, run, out_flag):
+    """run_chunked / run_stream / loop closure / checkpoint; returns the
+    record and the Sinkhorn launches of the map-on runs."""
+    import torch
+    from gcslam_torch.eval.ate_rpe import compute_ate
+    from gcslam_torch.frontend.loop import LoopConfig, LoopDetector
+    from gcslam_torch.frontend.synthetic import SyntheticConfig, generate
+    from gcslam_torch.models import runner, scan_step
+    from gcslam_torch.models.config import PipelineConfig
+    from gcslam_torch.ops import sinkhorn
+    from gcslam_torch.utils import checkpoint
+
+    cfg = PipelineConfig()
+    expected = [cfg.n_surfel, cfg.k_assoc]
+    with sinkhorn_shapes() as shapes:
+        sinkhorn.COUNTER.reset()
+        t0 = time.perf_counter()
+        state_c, out_c = runner.run_chunked(run.batches, cfg, chunk=CHUNK, device=device)
+        torch.cuda.synchronize()
+        ms_c = 1e3 * (time.perf_counter() - t0) / len(run.batches)
+        launches_c = sinkhorn.COUNTER.launches
+    if not torch.equal(out_c.pose, out_flag.pose):
+        fail(f"run_chunked differs from run_bag: max |dpose| {(out_c.pose - out_flag.pose).abs().max().item():.3e}")
+    ate_c = compute_ate(out_c.pose.cpu().numpy(), run.gt_poses, align="initial")["translation"]["rmse"]
+    print(f"run_chunked(chunk={CHUNK}): {ms_c:.2f} ms/scan, poses bit-equal to run_bag's, ATE {ate_c:.4f} m, "
+          f"{launches_c} sinkhorn launches")
+    if ate_c > GATE_CHUNK_ATE_TRANS_RMSE_M or launches_c != cfg.map_icp_iters * len(run.batches):
+        fail(f"run_chunked: ATE {ate_c:.4f} m, {launches_c} launches")
+
+    stream_dir = os.path.join(OUT_DIR, "stream")
+    status_path = os.path.join(OUT_DIR, "status.jsonl")
+    n = N_STREAM_SCANS
+    with sinkhorn_shapes() as shapes_s:
+        sinkhorn.COUNTER.reset()
+        t0 = time.perf_counter()
+        _, out_s = runner.run_stream(run.batches[:n], cfg, map_stream_dir=stream_dir, map_stream_every=5,
+                                     status_path=status_path, status_every=3, device=device)
+        ms_s = 1e3 * (time.perf_counter() - t0) / n
+        launches_s = sinkhorn.COUNTER.launches
+    if shapes | shapes_s != {tuple(expected)}:
+        fail(f"live modes: sinkhorn problem shapes {sorted(shapes | shapes_s)}, expected {tuple(expected)}")
+    ate_s = compute_ate(out_s.pose.cpu().numpy(), run.gt_poses[:n], align="initial")["translation"]["rmse"]
+    maps = [json.loads(line) for line in open(os.path.join(stream_dir, "map_stream.jsonl"))]
+    status = [json.loads(line) for line in open(status_path)]
+    if [m["scan"] for m in maps] != [0, 5, n - 1] or [st["scan"] for st in status] != [0, 3, 6, 9]:
+        fail(f"run_stream: map stream at {[m['scan'] for m in maps]}, status at {[st['scan'] for st in status]}")
+    for m in maps:
+        if np.load(os.path.join(stream_dir, m["file"]))["mu_world"].shape[0] != m["n_splats"]:
+            fail(f"run_stream: snapshot {m['file']} does not hold {m['n_splats']} splats")
+    if not torch.equal(out_s.pose, out_flag.pose[:n]) or launches_s != cfg.map_icp_iters * n:
+        fail(f"run_stream: poses differ from run_bag's or {launches_s} launches")
+    print(f"run_stream: {ms_s:.2f} ms/scan over {n} scans with both streams (poses bit-equal to run_bag's); "
+          f"{len(maps)} map snapshots ({maps[-1]['n_splats']} splats last), {len(status)} status lines "
+          f"(last dead_end {status[-1]['dead_end']})")
+
+    loiter = generate(SyntheticConfig(**LOITER), device=device)
+    det = LoopDetector(LoopConfig(**LOOP_CFG))
+    t0 = time.perf_counter()
+    _, out_l = runner.run_chunked(loiter.batches, PipelineConfig(with_map=False), chunk=8, loop_detector=det,
+                                  device=device)
+    ms_l = 1e3 * (time.perf_counter() - t0) / len(loiter.batches)
+    poses_l = out_l.pose.cpu().numpy()
+    fired = np.nonzero(out_l.tape.io_loop_weight.cpu().numpy() > 0)[0].tolist()
+    xy = float(np.linalg.norm(poses_l[:, :2] - loiter.gt_poses[:, :2], axis=1).max())
+    print(f"loop closure (loitering world, run_chunked(chunk=8), no map): {ms_l:.2f} ms/scan, loops fired at "
+          f"scans {fired}, max xy error {xy:.3f} m")
+    if not np.isfinite(poses_l).all() or not fired or xy >= LOITER_MAX_XY_M:
+        fail(f"loop closure: fired {fired}, max xy error {xy:.3f} m")
+
+    path = os.path.join(OUT_DIR, "state.npz")
+    checkpoint.save_state(path, state_c)
+    back = checkpoint.load_state(path, scan_step.init_state(cfg, device=device))
+    leaves, leaves_back = checkpoint.state_leaves(state_c), checkpoint.state_leaves(back)
+    if len(leaves) != len(leaves_back) or not all(b.is_cuda and torch.equal(a, b)
+                                                  for a, b in zip(leaves, leaves_back)):
+        fail("checkpoint: the loaded state differs from the saved one")
+    print(f"checkpoint: {len(leaves)} leaves saved and loaded on the card, bit-equal "
+          f"({os.path.getsize(path) / 1e6:.1f} MB npz)")
+    record = {"chunked": {"ms_per_scan": ms_c, "chunk": CHUNK, "bit_equal_to_run_bag": True, "ate_m": ate_c,
+                          "sinkhorn_launches": launches_c, "sinkhorn_shape": expected},
+              "stream": {"ms_per_scan": ms_s, "n_scans": n, "ate_m": ate_s, "map_snapshots": len(maps),
+                         "status_lines": len(status), "sinkhorn_launches": launches_s, "sinkhorn_shape": expected},
+              "loop": {"ms_per_scan": ms_l, "n_scans": len(loiter.batches), "fired_at": fired, "max_xy_m": xy},
+              "checkpoint": {"leaves": len(leaves), "bit_equal": True}}
+    return record, launches_c + launches_s
+
+
+def phase_options(device, run):
+    """The four filter options over the first N_OPTION_SCANS scans; returns
+    their records and the Sinkhorn launches."""
+    from gcslam_torch.models.config import PipelineConfig
+
+    sub = SimpleNamespace(batches=run.batches[:N_OPTION_SCANS], gt_poses=run.gt_poses[:N_OPTION_SCANS])
+    records, total = {}, 0
+    for name, overrides in OPTIONS.items():
+        cfg = PipelineConfig(**overrides)
+        with sinkhorn_shapes() as shapes:
+            _, _, ms_scan, launches, ate = replay(device, cfg, sub, f"option {name}")
+        expected = (cfg.n_surfel, cfg.k_assoc)
+        if shapes != {expected}:
+            fail(f"option {name}: sinkhorn problem shapes {sorted(shapes)}, expected {expected}")
+        records[name] = {"ms_per_scan": ms_scan, "n_scans": N_OPTION_SCANS, "ate_m": ate["translation"]["rmse"],
+                         "ate_deg": ate["rotation_deg"]["rmse"], "sinkhorn_launches": launches,
+                         "sinkhorn_shape": list(expected)}
+        total += launches
+    return records, total
+
+
 def main() -> None:
     import torch
 
@@ -535,25 +778,45 @@ def main() -> None:
     print(f"device: {kind} (torch {torch.__version__}, CUDA {torch.version.cuda})")
     print(nvidia_smi_line())
 
+    t_start = time.perf_counter()
+    seconds = {}
+
+    def lap(name: str) -> None:
+        seconds[name] = time.perf_counter() - t_start - sum(seconds.values())
+        print(f"[{name}: {seconds[name]:.1f} s; {time.perf_counter() - t_start:.1f} s since the start]", flush=True)
+
     # 2. kernels against their plain versions
     phase_build()
     sk = phase_sinkhorn(device)
     rs = phase_raster(device)
+    lap("phases 1-2")
 
     # 3-4. the flagship path and determinism
-    run, cfg, ms_flag, launches_flag, ate_flag = phase_flagship(device)
+    run, cfg, out_flag, ms_flag, launches_flag, ate_flag = phase_flagship(device)
     phase_determinism(device, run, cfg)
+    lap("phases 3-4")
 
     # 5-7. the camera path, the render of its map, the viewer
     run_cam, state_cam, out_cam, ms_cam, fe_ms, launches_cam, ate_cam = phase_camera(device)
     launches_raster, renders, err_render = phase_render(device, state_cam, out_cam)
     phase_viewer(state_cam, out_cam, run_cam)
+    lap("phases 5-7")
 
+    # 8-10. the per-hypothesis map branch, the live modes, the filter options
+    per_hyp, shared_ext, launches_hyp = phase_per_hypothesis(device, run, ate_flag)
+    lap("phase 8")
+    live, launches_live = phase_live(device, run, out_flag)
+    lap("phase 9")
+    options, launches_opt = phase_options(device, run)
+    lap("phase 10")
+
+    launches_sinkhorn = launches_flag + launches_cam + launches_hyp + launches_live + launches_opt
+    sk_main = sk[(4, 1024)]  # the per-hypothesis path's shape
     kernels = [
         dict(name="sinkhorn_unbalanced", route="cuda", source="gcslam_torch/csrc/sinkhorn.cu",
-             replaces="gcslam_tpu/ops/sinkhorn_pallas.py:59", launches=launches_cam,
-             max_abs_err=sk[1536]["max_abs_err"], ms=sk[1536]["ms"], device_ms=sk[1536]["device_ms"],
-             plain_ms=sk[1536]["plain_ms"], bound_ms=sk[1536]["bound_ms"], bound_by=sk[1536]["bound_by"],
+             replaces="gcslam_tpu/ops/sinkhorn_pallas.py:59", launches=launches_sinkhorn,
+             max_abs_err=sk_main["max_abs_err"], ms=sk_main["ms"], device_ms=sk_main["device_ms"],
+             plain_ms=sk_main["plain_ms"], bound_ms=sk_main["bound_ms"], bound_by=sk_main["bound_by"],
              library_ms=None),
         dict(name="render_splats_raster", route="cuda", source="gcslam_torch/csrc/raster.cu",
              replaces="gcslam_tpu/outputs/rendering_pallas.py:128", launches=launches_raster,
@@ -563,11 +826,16 @@ def main() -> None:
     print(json.dumps({"paths": {
         "flagship": {"ms_per_scan": ms_flag, "n_scans": N_SCANS, "n_points": N_POINTS,
                      "ate_m": ate_flag["translation"]["rmse"], "ate_deg": ate_flag["rotation_deg"]["rmse"],
-                     "sinkhorn_launches": launches_flag, "sinkhorn_1024": sk[1024]},
+                     "sinkhorn_launches": launches_flag, "sinkhorn_1024": sk[(1, 1024)]},
         "camera": {"ms_per_scan": ms_cam, "frontend_ms_per_frame": fe_ms, "n_scans": N_SCANS,
                    "ate_m": ate_cam["translation"]["rmse"], "ate_deg": ate_cam["rotation_deg"]["rmse"],
-                   "sinkhorn_launches": launches_cam, "sinkhorn_1536": sk[1536]},
+                   "sinkhorn_launches": launches_cam, "sinkhorn_1536": sk[(1, 1536)]},
         "render": [{"vantage": n, "covered": c, "ms": ms} for n, c, ms in renders],
+        "per_hypothesis": {**per_hyp, "sinkhorn_4x1024": sk_main},
+        "per_hypothesis_shared_extraction": shared_ext,
+        **live,
+        "options": options,
+        "seconds": seconds,
     }}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

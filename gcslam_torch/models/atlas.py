@@ -26,6 +26,7 @@ from gcslam_torch import constants as C
 from gcslam_torch.models.batch import MeasurementBatch, from_camera_and_surfels, mean_positions
 from gcslam_torch.models.config import PipelineConfig
 from gcslam_torch.ops import association as assoc_mod
+from gcslam_torch.ops import certs as CT
 from gcslam_torch.ops import evidence_pose, linalg, se3, tiling
 from gcslam_torch.ops.association import topk_lowest_index
 from gcslam_torch.ops.binned import scatter_accumulate, scatter_set, take_rows
@@ -208,11 +209,14 @@ def extract_view(
 
 
 # ---------------------------------------------------------------------------
-# Map evidence (steps 7-8): shared extraction + the GN chain
+# Map evidence (steps 7-8): extraction, shortlist and the GN chain
 # ---------------------------------------------------------------------------
 
 
 class MapExtras(NamedTuple):
+    """Map-branch products for the map update (fields may carry a leading
+    hypothesis dim on the per-hypothesis GN path)."""
+
     batch: MeasurementBatch
     responsibilities: torch.Tensor  # (N, K)
     cand_pool: torch.Tensor  # (N, K) pool rows
@@ -229,9 +233,10 @@ def build_measurement_inputs(
     z_center, cfg: PipelineConfig, sensor_var=None,
 ):
     """Surfel extraction + measurement batch + distance shortlist at
-    z_center; returns (mbatch, CandidateSet, surfel cert). The batch's
-    camera rows come first when cfg.with_camera and are dropped otherwise
-    (zero-weight rows would change nothing but the shapes)."""
+    z_center; returns (mbatch, CandidateSet or None when k_shortlist = 0,
+    surfel cert). The batch's camera rows come first when cfg.with_camera
+    and are dropped otherwise (zero-weight rows would change nothing but the
+    shapes)."""
     surfels, surf_cert = extract_surfels(
         deskewed_points, point_stamps, deskewed_weights,
         cfg.n_surfel, cfg.surfel_voxel_size_m, cfg.surfel_min_points_per_voxel,
@@ -245,10 +250,58 @@ def build_measurement_inputs(
         surfels.positions, surfels.Lambdas, surfels.normals, surfels.kappas,
         surfels.weights, surfels.timestamps, surfels.valid,
     )
+    if cfg.k_shortlist == 0:
+        return mbatch, None, surf_cert
     R_sl = se3.so3_exp(z_center[3:6])
     mpos_w = mean_positions(mbatch, cfg.eps_lift) @ R_sl.T + z_center[None, :3]
     sl_idx = assoc_mod.shortlist_candidates(mpos_w, mbatch.valid, atlas_view, cfg)
     return mbatch, assoc_mod.gather_candidates(atlas_view, sl_idx), surf_cert
+
+
+def stack_measurement_inputs(inputs):
+    """Per-hypothesis (mbatch, shortlist, surfel cert) triples stacked along
+    a new leading hypothesis dim."""
+    def stk(parts):
+        return None if parts[0] is None else type(parts[0])(*[
+            None if xs[0] is None else torch.stack(xs) for xs in zip(*parts)])
+
+    mbs, sls, certs = zip(*inputs)
+    return stk(mbs), stk(sls), stk(certs)
+
+
+def expand_measurement_inputs(inputs, k: int):
+    """A shared (mbatch, shortlist, surfel cert) seen by k hypotheses: a
+    leading dim of size k over the same storage (no copy)."""
+    def exp(t):
+        return None if t is None else type(t)(*[None if x is None else x.expand((k,) + x.shape) for x in t])
+
+    return tuple(exp(t) for t in inputs)
+
+
+def make_map_evidence_fn(atlas_view: AtlasView, cfg: PipelineConfig, scan_seq, sensor_var, shared=None):
+    """The per-hypothesis map branch (map_gn_shared=False), called by the
+    scan step after every hypothesis has its z_lin: `fn(points_k, weights,
+    batch_in, z_lin_world (K, 6)) -> (L, h, certs, MapExtras)`, all with a
+    leading K dim. Without `shared`, each hypothesis k extracts its own
+    surfels from its deskewed points points_k[k] and takes its shortlist at
+    its own z_lin (a loop over K); with `shared` = (mbatch, shortlist,
+    surfel cert) from the hypothesis-0 pre-pass, every hypothesis uses that
+    extraction. The GN rounds then run for all hypotheses at once — one
+    batched Sinkhorn launch per round."""
+
+    def map_evidence(points_k, deskewed_weights, batch_in, z_lin_world):
+        K = z_lin_world.shape[0]
+        if shared is not None:
+            mbatch, shortlist, surf_cert = expand_measurement_inputs(shared, K)
+            surf_cert = CT.with_triggers(surf_cert, CT.TRIGGERS["hyp_shared_extraction"])
+        else:
+            mbatch, shortlist, surf_cert = stack_measurement_inputs([
+                build_measurement_inputs(points_k[k], batch_in.point_stamps, deskewed_weights, batch_in,
+                                         atlas_view, z_lin_world[k], cfg, sensor_var)
+                for k in range(K)])
+        return map_gn_evidence(mbatch, shortlist, surf_cert, atlas_view, scan_seq, z_lin_world, cfg)
+
+    return map_evidence
 
 
 def map_gn_evidence(mbatch, shortlist, surf_cert, atlas_view: AtlasView,
@@ -256,7 +309,10 @@ def map_gn_evidence(mbatch, shortlist, surf_cert, atlas_view: AtlasView,
     """Coarse-to-fine Gauss-Newton rounds: round r associates with
     ot_epsilon * factor^(R-1-r) (Cauchy scale by the square root), takes a
     trust-region step except on the final round, whose factor — linearized
-    at its own pose — is returned. The anneal schedule is static Python."""
+    at its own pose — is returned. The anneal schedule is static Python.
+    The measurement inputs and z_start may carry a leading hypothesis dim:
+    each hypothesis then runs its own chain, and each round's association
+    is one batched call (shortlist None = the full-pool association)."""
     n_rounds = max(1, cfg.map_icp_iters)
     z = z_start
     for it in range(n_rounds):
@@ -265,23 +321,23 @@ def map_gn_evidence(mbatch, shortlist, surf_cert, atlas_view: AtlasView,
         assoc, assoc_cert = assoc_mod.associate_primitives_ot(
             mbatch, atlas_view, scan_seq, cfg, z, shortlist, eps_r)
         L_lidar, h_lidar, vis_cert = evidence_pose.primitive_pose_evidence(
-            assoc, mbatch, z, cfg, shortlist, cfg.pose_cauchy_r0_m * math.sqrt(anneal))
+            assoc, mbatch, z, cfg, shortlist, cfg.pose_cauchy_r0_m * math.sqrt(anneal), view=atlas_view)
         if it + 1 < n_rounds:
-            L6 = L_lidar[0:6, 0:6] + cfg.eps_lift * linalg.eye(6, L_lidar)
-            delta, _ = linalg.spd_solve_lifted(L6, h_lidar[0:6], cfg.eps_lift)
+            L6 = L_lidar[..., 0:6, 0:6] + cfg.eps_lift * linalg.eye(6, L_lidar)
+            delta, _ = linalg.spd_solve_lifted(L6, h_lidar[..., 0:6], cfg.eps_lift)
             step_cap = 2.0 * math.sqrt(eps_r)
-            nrm = torch.linalg.vector_norm(delta)
+            nrm = torch.linalg.vector_norm(delta, dim=-1, keepdim=True)
             delta = delta * torch.clamp(step_cap / (nrm + 1e-12), max=1.0)
             z = se3.se3_compose(z, se3.se3_exp(delta))
 
     # LiDAR translation residuals at the final linearization (third
     # measurement-noise IW block)
-    R_z = se3.so3_exp(z[3:6])
-    meas_w = mean_positions(mbatch, cfg.eps_lift) @ R_z.T + z[None, :3]
+    R_zT = se3.so3_exp(z[..., 3:6]).transpose(-1, -2)
+    meas_w = mean_positions(mbatch, cfg.eps_lift) @ R_zT + z[..., None, :3]
     map_pos = atlas_view.positions[assoc.cand_pool]
-    pair_ok = (mbatch.valid[:, None] & atlas_view.valid[assoc.cand_pool]
-               & (mbatch.sources == 1)[:, None])
-    resid = torch.where(pair_ok[:, :, None], map_pos - meas_w[:, None, :], 0.0)
+    pair_ok = (mbatch.valid[..., None] & atlas_view.valid[assoc.cand_pool]
+               & (mbatch.sources == 1)[..., None])
+    resid = torch.where(pair_ok[..., None], map_pos - meas_w[..., None, :], 0.0)
     resid = torch.where(torch.isfinite(resid), resid, 0.0)
     extras = MapExtras(
         batch=mbatch,
@@ -295,6 +351,12 @@ def map_gn_evidence(mbatch, shortlist, surf_cert, atlas_view: AtlasView,
         lidar_resid_w=assoc.responsibilities * pair_ok.to(resid.dtype),
     )
     return L_lidar, h_lidar, [surf_cert, assoc_cert, vis_cert], extras
+
+
+def hypothesis_extras(extras: MapExtras, k: int) -> MapExtras:
+    """Hypothesis k's slice of per-hypothesis MapExtras."""
+    return MapExtras(*[MeasurementBatch(*[x[k] for x in v]) if isinstance(v, MeasurementBatch) else v[k]
+                       for v in extras])
 
 
 # ---------------------------------------------------------------------------

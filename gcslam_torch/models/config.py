@@ -43,12 +43,14 @@ class PipelineConfig:
     c_ex: float = C.C_EX
     c_frob: float = C.C_FROB
 
-    # IMU ("predict" is the flagship filter; "evidence" is not ported yet)
+    # IMU ("predict" is the flagship filter; "evidence" adds the gyro and
+    # preintegration factors to a diffusion prediction)
     imu_gravity_scale: float = 1.0
     deskew_rotation_only: bool = False
     imu_mode: str = "predict"
 
-    # Planar priors / odometry ("relative" odometry is not ported yet)
+    # Planar priors / odometry ("relative": the odometry factor targets
+    # pose0 o odom_rel_pose)
     enable_planar_prior: bool = True
     planar_z_ref: float = C.PLANAR_Z_REF
     planar_z_sigma: float = C.PLANAR_Z_SIGMA
@@ -84,10 +86,11 @@ class PipelineConfig:
     ot_tau_b: float = C.OT_TAU_B
     ot_cost_beta: float = C.OT_COST_BETA
     ot_subtract_row_min: bool = False
-    # Distance shortlist per measurement (0 = full pool, not ported yet).
+    # Distance shortlist per measurement (0 = associate against the full pool).
     k_shortlist: int = 32
     shortlist_margin_m: float = 1.0
-    # Shared surfel extraction + one shared GN chain across hypotheses.
+    # Shared surfel extraction and one shared GN chain across hypotheses;
+    # both False is the reference's per-hypothesis map branch.
     map_share_extraction: bool = True
     map_gn_shared: bool = True
 
@@ -153,22 +156,8 @@ class PipelineConfig:
             raise ValueError("map_gn_shared requires map_share_extraction")
 
     def check_ported(self) -> None:
-        """Refuse the options whose code paths the port does not have yet."""
-        missing = []
-        if self.imu_mode != "predict":
-            missing.append("imu_mode='evidence'")
-        if self.odom_pose_mode != "absolute":
-            missing.append("odom_pose_mode='relative'")
-        if self.with_map and not (self.map_share_extraction and self.map_gn_shared):
-            missing.append("per-hypothesis map GN (map_gn_shared=False)")
-        if self.with_map and self.k_shortlist == 0:
-            missing.append("full-pool association (k_shortlist=0)")
-        if self.ot_subtract_row_min:
-            missing.append("ot_subtract_row_min=True")
-        if missing:
-            raise NotImplementedError(
-                "gcslam_torch does not port these options yet: " + ", ".join(missing)
-            )
+        """Every option of this config has its code path in the port, so
+        nothing is refused; the entry points call this before they run."""
 
 
 PARAM_RANGES = [

@@ -1,14 +1,22 @@
 """The scan step — the per-scan pipeline as one function on tensors
-(counterpart of the JAX package's models/scan_step.py, default configuration).
+(counterpart of the JAX package's models/scan_step.py).
 
     scan_step(state, batch, config) -> (state', StepOutput)
 
 The K_HYP hypotheses run as a leading batch dimension of every belief
-tensor (the JAX package vmaps them). The map branch runs once per scan from
-hypothesis 0 (shared surfel extraction + one shared Gauss-Newton chain,
-config.map_gn_shared) and every hypothesis receives its alignment factor.
-The step is branch-free: Python `if` only on the static config, and no
-value is read back to the host.
+tensor (the JAX package vmaps them). The map branch has three sharing
+levels (config.map_share_extraction / map_gn_shared):
+  - shared GN (the default): one surfel extraction and one Gauss-Newton
+    chain per scan from hypothesis 0's predicted pose, before the
+    hypotheses run; every hypothesis receives its alignment factor;
+  - shared extraction: the hypothesis-0 extraction, then one GN chain per
+    hypothesis from its own z_lin;
+  - per hypothesis (the reference's semantics): each hypothesis deskews
+    with its own twist, extracts its own surfels and runs its own GN chain.
+The per-hypothesis GN chains run together: every round is one batched
+association and one Sinkhorn launch for all K_HYP problems. The step is
+branch-free: Python `if` only on the static config, and no value is read
+back to the host.
 
 Per-scan order: soft IMU windows -> two-window preintegration -> IMU
 prediction -> IMU/odom evidence -> z_lin -> map evidence -> tempering ->
@@ -31,9 +39,9 @@ from gcslam_torch.models.config import PipelineConfig
 from gcslam_torch.models.scan_io import ScanBatch
 from gcslam_torch.ops import certs as CT
 from gcslam_torch.ops import evidence_imu, evidence_odom, fusion, iw, linalg, recompose, se3, tiling
-from gcslam_torch.ops.deskew import deskew_constant_twist, deskew_weights
+from gcslam_torch.ops.deskew import deskew_constant_twist, deskew_points, deskew_weights
 from gcslam_torch.ops.hypothesis import hypothesis_barycenter
-from gcslam_torch.ops.predict import predict_imu
+from gcslam_torch.ops.predict import predict_diffusion, predict_imu
 from gcslam_torch.ops.preintegration import imu_integration_time, imu_mean_sample_period, preintegrate
 from gcslam_torch.ops.se3 import mv
 from gcslam_torch.ops.windows import smooth_window_weights
@@ -132,6 +140,7 @@ class HypOutputs(NamedTuple):
     ee_info_gain_pred: torch.Tensor
     ee_info_gain_real: torch.Tensor
     z_t_pose: torch.Tensor  # (K, 6) post-recompose world pose
+    map_extras: object  # atlas.MapExtras (leading K dim when per hypothesis) | None
 
 
 def _nan0(x: torch.Tensor) -> torch.Tensor:
@@ -155,16 +164,24 @@ def _hypothesis_step(
     Q: torch.Tensor,
     Sigma_g: torch.Tensor,
     Sigma_a: torch.Tensor,
-    map_out,  # (L_lidar, h_lidar, certs, MapExtras) of the shared GN chain, or None
+    map_branch,
     config: PipelineConfig,
     inputs_finite: torch.Tensor,
     beta_scale: torch.Tensor,  # (K,)
     map_scale: torch.Tensor,  # (K,)
 ) -> HypOutputs:
-    """Steps 2-14 + 16 for all hypotheses at once (leading K dim)."""
+    """Steps 2-14 + 16 for all hypotheses at once (leading K dim).
+
+    `map_branch` is None (no map), the (L_lidar, h_lidar, certs, MapExtras)
+    of the shared GN chain, or the per-hypothesis map branch
+    `fn(points_k, deskewed_weights, batch, z_lin_world (K, 6))`
+    (atlas.make_map_evidence_fn), called after every hypothesis has its
+    z_lin; points_k holds each hypothesis' deskewed points when it extracts
+    its own surfels (map_share_extraction=False), else None."""
     cfg = config
     dev = Q.device
     all_certs = []
+    imu_predict = cfg.imu_mode == "predict"
 
     def s2(x):
         return x[..., None, None]
@@ -197,19 +214,24 @@ def _hypothesis_step(
     pre_scan = type(pre2)(*[x[0] for x in pre2])
     pre_int = type(pre2)(*[x[1] for x in pre2])
 
-    # --- Step 2: IMU prediction with the wheel yaw-rate fused into the increment
-    delta_pose_f = pre_int.delta_pose
-    if cfg.enable_odom_twist:
-        var_g = Sigma_g[2, 2] * torch.clamp(dt_int, min=1e-6)
-        sigma_wz_sq = torch.clamp(batch.odom_twist_cov[5, 5], min=1e-12)
-        var_o = sigma_wz_sq * torch.clamp(dt_int, min=1e-6) ** 2 + C.EPS_MASS * 1e-3
-        w_g = var_o / (var_g + var_o)
-        dz_f = w_g * pre_int.delta_pose[..., 5] + (1.0 - w_g) * (batch.odom_twist[5] * dt_int)
-        delta_pose_f = torch.cat([pre_int.delta_pose[..., :5], dz_f[..., None]], dim=-1)
-    belief_pred, pred_cert = predict_imu(
-        belief_prev, Q, batch.dt_sec, delta_pose_f, pre_int.delta_v,
-        dt_int, Sigma_g, Sigma_a, cfg.eps_psd, cfg.eps_lift,
-    )
+    # --- Step 2: prediction. 'predict': IMU prediction with the wheel
+    # yaw-rate fused into the increment; 'evidence': OU diffusion (the
+    # preintegration enters as factors below)
+    if imu_predict:
+        delta_pose_f = pre_int.delta_pose
+        if cfg.enable_odom_twist:
+            var_g = Sigma_g[2, 2] * torch.clamp(dt_int, min=1e-6)
+            sigma_wz_sq = torch.clamp(batch.odom_twist_cov[5, 5], min=1e-12)
+            var_o = sigma_wz_sq * torch.clamp(dt_int, min=1e-6) ** 2 + C.EPS_MASS * 1e-3
+            w_g = var_o / (var_g + var_o)
+            dz_f = w_g * pre_int.delta_pose[..., 5] + (1.0 - w_g) * (batch.odom_twist[5] * dt_int)
+            delta_pose_f = torch.cat([pre_int.delta_pose[..., :5], dz_f[..., None]], dim=-1)
+        belief_pred, pred_cert = predict_imu(
+            belief_prev, Q, batch.dt_sec, delta_pose_f, pre_int.delta_v,
+            dt_int, Sigma_g, Sigma_a, cfg.eps_psd, cfg.eps_lift,
+        )
+    else:
+        belief_pred, pred_cert = predict_diffusion(belief_prev, Q, batch.dt_sec, cfg.eps_psd, cfg.eps_lift)
     all_certs.append(pred_cert)
     _, Sigma_pred, _ = to_moments(belief_pred, cfg.eps_lift)
     mu_inc = mean_increment(belief_pred, cfg.eps_lift)
@@ -226,16 +248,35 @@ def _hypothesis_step(
     dPsi_meas = dPsi_g + dPsi_a
     dnu_meas = dnu_g + dnu_a
 
-    # --- Step 5: deskew (the points themselves feed only the shared map
-    # branch; per hypothesis only the window reweighting certificate remains)
-    _, deskew_cert = deskew_weights(batch.point_stamps, batch.point_weights,
-                                    batch.scan_start_time, batch.scan_end_time, pre_scan.ess)
+    # --- Step 5: deskew. The window reweighting is the same for every
+    # hypothesis; the points are warped per hypothesis only where each
+    # extracts its own surfels (the shared branches deskew hypothesis 0
+    # in their pre-pass).
+    deskewed_weights, deskew_cert = deskew_weights(batch.point_stamps, batch.point_weights,
+                                                   batch.scan_start_time, batch.scan_end_time, pre_scan.ess)
     all_certs.append(deskew_cert)
+    points_k = None
+    if callable(map_branch) and not cfg.map_share_extraction:
+        xi_body = se3.se3_log(pre_scan.delta_pose)
+        if cfg.deskew_rotation_only:
+            xi_body = torch.cat([xi_body[..., :3] * 0.0, xi_body[..., 3:]], dim=-1)
+        points_k = [deskew_points(batch.points, batch.point_stamps, batch.scan_start_time, batch.scan_end_time, xi)
+                    for xi in xi_body]
 
     # --- Step 6: IMU + odom evidence -> z_lin
     pose_pred = world_pose(belief_pred, cfg.eps_lift)
-    L_odom, h_odom, odom_cert = evidence_odom.odom_quadratic_evidence(
-        pose_pred, batch.odom_pose, batch.odom_cov, cfg.eps_psd, cfg.eps_lift)
+    if cfg.odom_pose_mode == "relative":
+        # target pose0 o odom_rel; the covariance adds the head's predicted
+        # translation and rotation marginals to the odometry delta's
+        head = torch.zeros_like(Sigma_pred[..., C.IDX_POSE, C.IDX_POSE])
+        head[..., 0:3, 0:3] = Sigma_pred[..., C.IDX_TRANS, C.IDX_TRANS]
+        head[..., 3:6, 3:6] = Sigma_pred[..., C.IDX_ROT, C.IDX_ROT]
+        L_odom, h_odom, odom_cert = evidence_odom.odom_quadratic_evidence(
+            pose_pred, se3.se3_compose(pose0, batch.odom_rel_pose), batch.odom_rel_cov + head,
+            cfg.eps_psd, cfg.eps_lift)
+    else:
+        L_odom, h_odom, odom_cert = evidence_odom.odom_quadratic_evidence(
+            pose_pred, batch.odom_pose, batch.odom_cov, cfg.eps_psd, cfg.eps_lift)
     all_certs.append(odom_cert)
     L_loop, h_loop, _ = evidence_odom.odom_quadratic_evidence(
         pose_pred, batch.loop_pose, batch.loop_cov, cfg.eps_psd, cfg.eps_lift)
@@ -251,11 +292,23 @@ def _hypothesis_step(
 
     Sigma_prev_pos = Sigma_pred[..., C.IDX_TRANS, C.IDX_TRANS]
     Sigma_prev_rot = Sigma_pred[..., C.IDX_ROT, C.IDX_ROT]
-    # 'predict' mode: the preintegration was consumed by the prediction, so
-    # the gyro and preintegration factors are zero (the cert schema stays)
-    preint_fac = evidence_imu.zero_preint_factor(Q)
-    L_gyro, h_gyro = preint_fac.L, preint_fac.h
-    gyro_cert = CT.make_cert(exact=True, device=dev)
+    zero_fac = evidence_imu.zero_preint_factor(Q)
+    if imu_predict:
+        # the preintegration was consumed by the prediction, so the gyro and
+        # preintegration factors are zero (the cert schema stays)
+        preint_fac = zero_fac
+        L_gyro, h_gyro = zero_fac.L, zero_fac.h
+        gyro_cert = CT.make_cert(exact=True, device=dev)
+    else:
+        L_gyro, h_gyro, _, gyro_cert = evidence_imu.imu_gyro_rotation_evidence(
+            rotvec0, pose_pred[..., 3:6], pre_int.delta_pose[..., 3:6], Sigma_g, dt_int,
+            cfg.eps_psd, cfg.eps_lift)
+        all_certs.append(gyro_cert)
+        preint_fac, preint_cert = evidence_imu.imu_preintegration_factor(
+            pose0[..., 0:3], rotvec0, mu_prev[..., C.IDX_VEL], pose_pred[..., 0:3], mu_inc[..., C.IDX_VEL],
+            pose_pred[..., 3:6], pre_int.delta_v, pre_int.delta_p, Sigma_a, dt_int,
+            Sigma_prev_pos, Sigma_pred[..., C.IDX_VEL, C.IDX_VEL], cfg.eps_psd, cfg.eps_lift)
+        all_certs.append(preint_cert)
 
     if cfg.enable_planar_prior:
         L_planar, h_planar, planar_cert = evidence_odom.planar_z_prior(
@@ -265,8 +318,8 @@ def _hypothesis_step(
                                                              cfg.planar_vz_sigma)
         all_certs.append(vz_cert)
     else:
-        L_planar, h_planar = L_gyro, h_gyro
-        L_vz, h_vz = L_gyro, h_gyro
+        L_planar, h_planar = zero_fac.L, zero_fac.h
+        L_vz, h_vz = zero_fac.L, zero_fac.h
 
     R_world_body = se3.so3_exp(pose_pred[..., 3:6])
     L_vel, h_vel, vel_cert, _ = evidence_odom.odom_velocity_evidence(
@@ -287,7 +340,8 @@ def _hypothesis_step(
     all_certs.append(odom_dep_cert)
 
     twist_on = 1.0 if cfg.enable_odom_twist else 0.0
-    rel_on = 0.0  # predict mode: yaw-rate and kinematic factors live in the prediction
+    # 'predict' mode: the yaw-rate and kinematic factors live in the prediction
+    rel_on = 0.0 if imu_predict else twist_on
     od, imd = s2(odom_dep_scale), s2(imu_dep_scale)
     L_imu_odom = (
         od * L_odom + L_loop + imd * (grav.L + L_gyro) + preint_fac.L + L_planar + L_vz
@@ -303,9 +357,14 @@ def _hypothesis_step(
     L_fused_psd, _ = linalg.domain_projection_psd(belief_pred.L + L_imu_odom, cfg.eps_psd)
     z_lin_22d, _ = linalg.spd_solve_lifted(L_fused_psd, belief_pred.h + h_imu_odom, cfg.eps_lift)
 
-    # --- Steps 7-8: map evidence (shared GN chain), shifted to chart coords
-    if map_out is not None:
-        L_lidar, h_lidar, map_certs, extras = map_out
+    # --- Steps 7-8: map evidence, shifted to chart coords at the pose the
+    # map factor is linearized at
+    if map_branch is not None:
+        if callable(map_branch):
+            z_lin_world = se3.se3_compose(belief_pred.X_anchor, se3.se3_exp(z_lin_22d[..., C.IDX_POSE]))
+            L_lidar, h_lidar, map_certs, extras = map_branch(points_k, deskewed_weights, batch, z_lin_world)
+        else:
+            L_lidar, h_lidar, map_certs, extras = map_branch
         z_map_chart = se3.se3_log(se3.se3_relative(extras.z_map_pose, belief_pred.X_anchor))
         z_map_22d = torch.cat([z_map_chart, z_lin_22d[..., 6:]], dim=-1)
     else:
@@ -320,8 +379,10 @@ def _hypothesis_step(
     all_certs.extend(map_certs)
 
     if extras is not None:
+        lead = extras.z_map_pose.shape[:-1]
         dPsi_l, dnu_l = iw.lidar_meas_suffstats(
-            extras.lidar_residuals.reshape(-1, 3), extras.lidar_resid_w.reshape(-1), cfg.eps_mass)
+            extras.lidar_residuals.reshape(lead + (-1, 3)), extras.lidar_resid_w.reshape(lead + (-1,)),
+            cfg.eps_mass)
         dPsi_meas = dPsi_meas + dPsi_l
         dnu_meas = dnu_meas + dnu_l
 
@@ -427,12 +488,15 @@ def _hypothesis_step(
         ee_info_gain_pred=ee_gain_pred,
         ee_info_gain_real=ee_gain_real,
         z_t_pose=world_pose(drift.belief, cfg.eps_lift),
+        map_extras=extras,
     )
 
 
 def _shared_extraction_inputs(b0: Belief, batch: ScanBatch, view, cfg, sensor_var):
     """Hypothesis-0 deskew pre-pass feeding the shared surfel extraction and
-    shortlist, taken at hypothesis 0's IMU-predicted pose."""
+    shortlist, taken at hypothesis 0's predicted pose (IMU-propagated in
+    'predict' mode; the previous pose under the mean-preserving diffusion of
+    'evidence' mode)."""
     _, Sigma0, _ = to_moments(b0, cfg.eps_lift)
     sigma_warp = _warp_sigma(Sigma0, batch.dt_sec)
     w_scan = smooth_window_weights(batch.imu_stamps, batch.scan_start_time, batch.scan_end_time, sigma_warp)
@@ -452,13 +516,16 @@ def _shared_extraction_inputs(b0: Belief, batch: ScanBatch, view, cfg, sensor_va
     dsk_pts, dsk_w, _ = deskew_constant_twist(
         batch.points, batch.point_stamps, batch.point_weights,
         batch.scan_start_time, batch.scan_end_time, xi_body, pre_scan.ess)
-    w_int = smooth_window_weights(batch.imu_stamps, batch.t_last_scan, batch.t_scan, sigma_warp)
-    dt_int = imu_integration_time(batch.imu_stamps, batch.t_last_scan, batch.t_scan)
-    target_int = torch.minimum(torch.clamp(batch.t_scan - batch.t_last_scan, min=0.0), dt_int + dt_imu)
-    pre_int = preintegrate(
-        batch.imu_stamps, batch.imu_gyro, batch.imu_accel, w_int,
-        pose0[3:6], mu0[C.IDX_BG], mu0[C.IDX_BA], gravity_W, target_int)
-    z_center = se3.se3_compose(pose0, pre_int.delta_pose)
+    if cfg.imu_mode == "predict":
+        w_int = smooth_window_weights(batch.imu_stamps, batch.t_last_scan, batch.t_scan, sigma_warp)
+        dt_int = imu_integration_time(batch.imu_stamps, batch.t_last_scan, batch.t_scan)
+        target_int = torch.minimum(torch.clamp(batch.t_scan - batch.t_last_scan, min=0.0), dt_int + dt_imu)
+        pre_int = preintegrate(
+            batch.imu_stamps, batch.imu_gyro, batch.imu_accel, w_int,
+            pose0[3:6], mu0[C.IDX_BG], mu0[C.IDX_BA], gravity_W, target_int)
+        z_center = se3.se3_compose(pose0, pre_int.delta_pose)
+    else:
+        z_center = pose0
     inputs = atlas_mod.build_measurement_inputs(
         dsk_pts, batch.point_stamps, dsk_w, batch, view, z_center, cfg, sensor_var)
     return inputs, z_center
@@ -482,7 +549,7 @@ def scan_step(state: StepState, batch: ScanBatch, config: PipelineConfig) -> Tup
     Sigma_l = iw.measurement_noise_mode(state.meas_iw, 2, cfg.eps_psd)
 
     atlas = state.atlas
-    map_out = None
+    map_branch = None
     if cfg.with_map:
         b0 = Belief(*[x[0] for x in state.beliefs])
         center = world_pose(b0, cfg.eps_lift)[:3]
@@ -491,9 +558,16 @@ def scan_step(state: StepState, batch: ScanBatch, config: PipelineConfig) -> Tup
         atlas, _ = atlas_mod.recency_inflate(atlas, active_slots, batch.scan_seq, cfg)
         view = atlas_mod.extract_view(atlas, active_slots, torch.ones_like(active_slots, dtype=torch.bool), cfg)
         sensor_var = linalg.trace(Sigma_l) / 3.0
-        (mb_s, sl_s, sc_s), z_center = _shared_extraction_inputs(b0, batch, view, cfg, sensor_var)
-        sc_s = CT.with_triggers(sc_s, CT.TRIGGERS["hyp_shared_extraction"])
-        map_out = atlas_mod.map_gn_evidence(mb_s, sl_s, sc_s, view, batch.scan_seq, z_center, cfg)
+        shared = None
+        if cfg.map_share_extraction:
+            shared, z_center = _shared_extraction_inputs(b0, batch, view, cfg, sensor_var)
+        if cfg.map_gn_shared:
+            # one GN chain per scan from hypothesis 0's predicted pose
+            mb_s, sl_s, sc_s = shared
+            sc_s = CT.with_triggers(sc_s, CT.TRIGGERS["hyp_shared_extraction"])
+            map_branch = atlas_mod.map_gn_evidence(mb_s, sl_s, sc_s, view, batch.scan_seq, z_center, cfg)
+        else:
+            map_branch = atlas_mod.make_map_evidence_fn(view, cfg, batch.scan_seq, sensor_var, shared)
 
     if cfg.hyp_diversify and cfg.k_hyp == len(C.HYP_BETA_SCALE):
         beta_scales = torch.tensor(C.HYP_BETA_SCALE, dtype=BELIEF_DTYPE, device=dev)
@@ -502,7 +576,7 @@ def scan_step(state: StepState, batch: ScanBatch, config: PipelineConfig) -> Tup
         beta_scales = torch.ones(cfg.k_hyp, dtype=BELIEF_DTYPE, device=dev)
         map_scales = torch.ones(cfg.k_hyp, dtype=BELIEF_DTYPE, device=dev)
     hyp_out = _hypothesis_step(
-        state.beliefs, batch, Q, Sigma_g, Sigma_a, map_out, cfg,
+        state.beliefs, batch, Q, Sigma_g, Sigma_a, map_branch, cfg,
         inputs_finite=batch_finite, beta_scale=beta_scales, map_scale=map_scales)
 
     # per-scan hypothesis weight update from the evidence fit
@@ -529,8 +603,12 @@ def scan_step(state: StepState, batch: ScanBatch, config: PipelineConfig) -> Tup
 
     f = BELIEF_DTYPE
     if cfg.with_map:
+        # the map update follows hypothesis 0
+        extras0 = hyp_out.map_extras
+        if not cfg.map_gn_shared:
+            extras0 = atlas_mod.hypothesis_extras(extras0, 0)
         atlas_new, map_tape = atlas_mod.map_update_step(
-            atlas, view, map_out[3], hyp_out.z_t_pose[0], active_slots, active_ids,
+            atlas, view, extras0, hyp_out.z_t_pose[0], active_slots, active_ids,
             batch.scan_seq, batch.scan_end_time, cfg)
     else:
         atlas_new = atlas

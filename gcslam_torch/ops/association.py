@@ -1,15 +1,18 @@
-"""Primitive association via unbalanced Sinkhorn OT over a distance
-shortlist of the stencil pool (counterpart of the JAX package's ops/association.py,
-shortlist path).
+"""Primitive association via unbalanced Sinkhorn OT over the stencil pool
+(counterpart of the JAX package's ops/association.py).
 
-  - shortlist: per measurement, the k_shortlist nearest valid pool rows
-    within the stencil reach (+ margin), selected once per scan;
+  - candidates: per measurement, either the k_shortlist nearest valid pool
+    rows within the stencil reach (+ margin), selected once per scan, or,
+    with k_shortlist = 0, the whole pool (an (N, P) cost tile);
   - cost C[i,k] = ||x_i - x_k||^2 + beta * (1 - Bhattacharyya of the vMF
-    lobes) + recency bias; masked candidates cost 1e12;
-  - exact top-k_assoc by cost within the shortlist (ties to the lowest
-    index, like lax.top_k);
+    lobes) + recency bias; masked candidates cost 1e12; optionally the
+    row minimum is subtracted (ot_subtract_row_min);
+  - exact top-k_assoc by cost (ties to the lowest index, like lax.top_k);
   - fixed-iteration unbalanced Sinkhorn (ops/sinkhorn: the CUDA kernel on
     the card); responsibilities = pi (no row normalization).
+
+Measurement batches, poses and shortlists may carry a leading hypothesis
+dim; the view is shared.
 """
 
 from __future__ import annotations
@@ -106,82 +109,110 @@ def shortlist_candidates(meas_pos_world: torch.Tensor, meas_valid: torch.Tensor,
     return idx
 
 
+
+
+def _vmf_cost(meas_eta, meas_kap, d_pos, ceta_sq, cross, A_k2, ckap, cfg):
+    """Squared distance d_pos + ot_cost_beta * (1 - Bhattacharyya of the vMF
+    lobes), in POINT_DTYPE; `cross` = meas_eta . cand_eta per pair, the
+    candidate terms broadcast against (..., N, C)."""
+    km = 0.5 * torch.sqrt(torch.clamp(torch.sum(meas_eta**2, dim=-1)[..., None] + ceta_sq + 2.0 * cross, min=1e-24))
+    A_k1 = _log_A_vmf(torch.clamp(meas_kap.to(POINT_DTYPE), min=1e-12))[..., None]
+    bc = torch.exp(_log_A_vmf(km) - 0.5 * (A_k1 + A_k2))
+    d_dir = torch.clamp(1.0 - bc, min=0.0)
+    dir_on = ((meas_kap[..., None] > 0) & (ckap > 0)).to(POINT_DTYPE)
+    return d_pos + cfg.ot_cost_beta * d_dir * dir_on
+
+
 def associate_primitives_ot(
     batch: MeasurementBatch,
     view,
     scan_seq: torch.Tensor,
     cfg,
-    z_lin_pose: torch.Tensor,  # (6,) world pose
-    shortlist: CandidateSet,
+    z_lin_pose: torch.Tensor,  # (..., 6) world pose
+    shortlist: Optional[CandidateSet],
     ot_epsilon: float,
 ) -> Tuple[AssociationResult, Cert]:
     """OT association of the measurement batch (body frame at z_lin_pose)
-    against its shortlisted candidates; `ot_epsilon` is this GN round's
-    annealed kernel width."""
+    against its shortlisted candidates, or against the whole view when
+    `shortlist` is None (k_shortlist = 0); `ot_epsilon` is this GN round's
+    annealed kernel width. The batch, the pose and the shortlist may carry
+    one leading hypothesis dim (the view is shared): all hypotheses' plans
+    then come from ONE Sinkhorn call on C (K_HYP, N, k_assoc)."""
     f = BELIEF_DTYPE
-    N = batch.valid.shape[0]
+    p32 = POINT_DTYPE
+    N = batch.valid.shape[-1]
     K = cfg.k_assoc
 
-    R0 = se3.so3_exp(z_lin_pose[3:6])
-    meas_pos = mean_positions(batch, cfg.eps_lift) @ R0.T + z_lin_pose[:3][None, :]
-    meas_dir = mean_directions(batch, cfg.eps_mass) @ R0.T
+    R0T = se3.so3_exp(z_lin_pose[..., 3:6]).transpose(-1, -2)
+    meas_pos = mean_positions(batch, cfg.eps_lift) @ R0T + z_lin_pose[..., None, :3]
+    meas_dir = mean_directions(batch, cfg.eps_mass) @ R0T
     meas_kap = kappas(batch)
     valid_f = batch.valid.to(f)
 
-    p32 = POINT_DTYPE
     mp = meas_pos.to(p32)
-    meas_eta = (meas_kap[:, None] * meas_dir).to(p32)
+    meas_eta = (meas_kap[..., None] * meas_dir).to(p32)
     reach_sq = (2.0 * cfg.h_tile * (cfg.r_stencil_xy + 0.5)) ** 2
     recency_w = ot_epsilon * cfg.recency_decay_lambda
+    seq = scan_seq.to(torch.int32)
 
-    cs = shortlist
-    diff = mp[:, None, :] - cs.pos.to(p32)
-    d_pos = torch.sum(diff * diff, dim=-1)  # (N, Ks)
-    km = 0.5 * torch.sqrt(torch.clamp(
-        torch.sum(meas_eta**2, dim=1)[:, None] + cs.eta_sq
-        + 2.0 * torch.einsum("ni,nki->nk", meas_eta, cs.eta),
-        min=1e-24,
-    ))
-    A_k1 = _log_A_vmf(torch.clamp(meas_kap.to(p32), min=1e-12))[:, None]
-    bc = torch.exp(_log_A_vmf(km) - 0.5 * (A_k1 + cs.A_k2))
-    d_dir = torch.clamp(1.0 - bc, min=0.0)
-    dir_on = ((meas_kap[:, None] > 0) & (cs.kap > 0)).to(p32)
-    cost_sl = d_pos + cfg.ot_cost_beta * d_dir * dir_on
-    # recency bias in f64 (the reference promotes here: its annealed
-    # epsilon is an f64 array)
-    dt_sl = torch.clamp(scan_seq.to(torch.int32) - cs.last_supported, min=0).to(f)
-    cost_sl = cost_sl.to(f) + recency_w * dt_sl
-    sl_ok = cs.valid & batch.valid[:, None] & (d_pos < reach_sq)
-    cost_sl = torch.where(sl_ok, cost_sl, 1e12)
-
-    neg_top, ci = topk_lowest_index(-cost_sl, K)
+    if shortlist is None:
+        # full-pool (N, P) cost over the whole view
+        vp = view.positions.to(p32)
+        d_pos = torch.sum(mp * mp, dim=-1)[..., None] - 2.0 * mp @ vp.T + torch.sum(vp * vp, dim=1)
+        view_eta = (view.kappas[:, None] * view.directions).to(p32)
+        vkap = view.kappas.to(p32)
+        cost = _vmf_cost(meas_eta, meas_kap, d_pos, torch.sum(view_eta**2, dim=1), meas_eta @ view_eta.T,
+                         _log_A_vmf(torch.clamp(vkap, min=1e-12)), view.kappas, cfg)
+        # recency bias in f64 (the reference promotes here: its annealed
+        # epsilon is an f64 array)
+        cost = cost.to(f) + recency_w * torch.clamp(seq - view.last_supported, min=0).to(f)
+        ok = view.valid & batch.valid[..., None] & (d_pos < reach_sq)
+        neg_top, cand = topk_lowest_index(-torch.where(ok, cost, 1e12), K)
+        cand_sl = cand
+    else:
+        cs = shortlist
+        diff = mp[..., None, :] - cs.pos.to(p32)
+        d_pos = torch.sum(diff * diff, dim=-1)  # (..., N, Ks)
+        cost = _vmf_cost(meas_eta, meas_kap, d_pos, cs.eta_sq, torch.einsum("...ni,...nki->...nk", meas_eta, cs.eta),
+                         cs.A_k2, cs.kap, cfg)
+        cost = cost.to(f) + recency_w * torch.clamp(seq - cs.last_supported, min=0).to(f)
+        ok = cs.valid & batch.valid[..., None] & (d_pos < reach_sq)
+        neg_top, cand_sl = topk_lowest_index(-torch.where(ok, cost, 1e12), K)
+        cand = torch.gather(cs.idx, -1, cand_sl)
     cost = -neg_top
-    cand = torch.gather(cs.idx, 1, ci)
-    cand_valid = torch.gather(sl_ok, 1, ci)
+    cand_valid = torch.gather(ok, -1, cand_sl)
+
+    if cfg.ot_subtract_row_min:
+        # reference cost normalization; masked candidates are re-masked
+        # afterwards so the subtraction never zeroes one
+        row_min = torch.amin(torch.where(cand_valid, cost, torch.inf), dim=-1, keepdim=True)
+        cost = cost - torch.where(torch.isfinite(row_min), row_min, 0.0)
     cost_n = torch.where(cand_valid, cost, 1e12)
 
-    a = valid_f / torch.clamp(valid_f.sum(), min=cfg.eps_mass)
-    b = torch.full((K,), 1.0 / K, dtype=f, device=a.device)
+    a = valid_f / torch.clamp(valid_f.sum(-1, keepdim=True), min=cfg.eps_mass)
+    b = torch.full(a.shape[:-1] + (K,), 1.0 / K, dtype=f, device=a.device)
     pi = sinkhorn_unbalanced(cost_n, a, b, ot_epsilon, cfg.ot_tau_a, cfg.ot_tau_b, cfg.k_sinkhorn)
     pi = pi * cand_valid.to(f)
-    row_masses = pi.sum(1)
-    transport_mass = pi.sum()
+    row_masses = pi.sum(-1)
+    transport_mass = pi.sum((-2, -1))
     result = AssociationResult(
         responsibilities=pi,
         cand_pool=cand,
-        cand_sl=ci,
+        cand_sl=cand_sl,
         row_masses=row_masses,
         cost=cost_n,
         transport_mass=transport_mass,
-        marginal_defect_a=torch.linalg.vector_norm(row_masses - a),
-        ess_ot=row_masses.sum() ** 2 / (torch.sum(row_masses**2) + cfg.eps_mass),
+        marginal_defect_a=torch.linalg.vector_norm(row_masses - a, dim=-1),
+        ess_ot=row_masses.sum(-1) ** 2 / (torch.sum(row_masses**2, dim=-1) + cfg.eps_mass),
     )
+    triggers = TRIGGERS["sinkhorn_fixed_iter"] | TRIGGERS["sinkhorn_unbalanced_kl_relax"]
+    if shortlist is not None:
+        triggers |= TRIGGERS["shortlist_pruning"]
     cert = make_cert(
         exact=False,
-        triggers=TRIGGERS["sinkhorn_fixed_iter"] | TRIGGERS["sinkhorn_unbalanced_kl_relax"]
-        | TRIGGERS["shortlist_pruning"],
+        triggers=triggers,
         ess_total=result.ess_ot,
-        support_frac=valid_f.sum() / N,
+        support_frac=valid_f.sum(-1) / N,
         mass_epsilon_ratio=cfg.eps_mass / (transport_mass + cfg.eps_mass),
     )
     return result, cert

@@ -38,9 +38,11 @@ def scatter_accumulate(idx: torch.Tensor, payload: torch.Tensor, n_bins: int) ->
 
 
 def take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """x (A, M, ...) gathered along dim 1 at idx (A, k) -> (A, k, ...)."""
-    full_idx = idx.reshape(idx.shape + (1,) * (x.dim() - 2)).expand(idx.shape + x.shape[2:])
-    return torch.gather(x, 1, full_idx)
+    """x (*lead, M, ...) gathered along the dim after the leading ones at
+    idx (*lead, k) -> (*lead, k, ...); e.g. x (A, M, ...), idx (A, k)."""
+    d = idx.dim() - 1
+    full_idx = idx.reshape(idx.shape + (1,) * (x.dim() - d - 1)).expand(idx.shape + x.shape[d + 1:])
+    return torch.gather(x, d, full_idx)
 
 
 def scatter_set(target: torch.Tensor, idx: torch.Tensor, values: torch.Tensor) -> torch.Tensor:

@@ -37,6 +37,24 @@ def deskew_weights(
     return weights_out, cert
 
 
+def deskew_points(
+    points: torch.Tensor,  # (N, 3)
+    timestamps: torch.Tensor,  # (N,)
+    scan_start_time: torch.Tensor,
+    scan_end_time: torch.Tensor,
+    xi_body: torch.Tensor,  # (6,) twist over the scan interval
+) -> torch.Tensor:
+    """The point warp alone: (N, 3) points in the scan-end body frame."""
+    denom = torch.clamp(scan_end_time - scan_start_time, min=1e-12)
+    alpha = ((timestamps - scan_start_time) / denom).to(POINT_DTYPE)
+    xi = xi_body.to(POINT_DTYPE)
+    T_a = se3.se3_exp(alpha[:, None] * xi[None, :])  # (N, 6)
+    p_start = mv(se3.so3_exp(T_a[:, 3:6]), points.to(POINT_DTYPE)) + T_a[:, :3]
+    T_1 = se3.se3_exp(xi)
+    R_1 = se3.so3_exp(T_1[3:6])
+    return (p_start - T_1[None, :3]) @ R_1  # R_1^T (p - t) per row
+
+
 def deskew_constant_twist(
     points: torch.Tensor,  # (N, 3)
     timestamps: torch.Tensor,  # (N,)
@@ -46,13 +64,6 @@ def deskew_constant_twist(
     xi_body: torch.Tensor,  # (6,) twist over the scan interval
     ess_imu: torch.Tensor,
 ) -> Tuple[torch.Tensor, torch.Tensor, Cert]:
-    denom = torch.clamp(scan_end_time - scan_start_time, min=1e-12)
-    alpha = ((timestamps - scan_start_time) / denom).to(POINT_DTYPE)
-    xi = xi_body.to(POINT_DTYPE)
-    T_a = se3.se3_exp(alpha[:, None] * xi[None, :])  # (N, 6)
-    p_start = mv(se3.so3_exp(T_a[:, 3:6]), points.to(POINT_DTYPE)) + T_a[:, :3]
-    T_1 = se3.se3_exp(xi)
-    R_1 = se3.so3_exp(T_1[3:6])
-    p0 = (p_start - T_1[None, :3]) @ R_1  # R_1^T (p - t) per row
+    p0 = deskew_points(points, timestamps, scan_start_time, scan_end_time, xi_body)
     weights_out, cert = deskew_weights(timestamps, weights, scan_start_time, scan_end_time, ess_imu)
     return p0, weights_out, cert

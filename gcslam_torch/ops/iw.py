@@ -206,10 +206,11 @@ def accel_meas_suffstats(rotvec_world_body, imu_accel, weights, accel_bias, grav
 
 
 def lidar_meas_suffstats(residuals: torch.Tensor, weights: torch.Tensor, eps_mass: float = C.EPS_MASS):
-    """LiDAR translation suffstats from weighted residual outer products,
-    scaled by the continuous support s = w_sum / (w_sum + 0.1)."""
-    w_sum = weights.sum()
-    w_norm = weights / (w_sum + eps_mass)
+    """LiDAR translation suffstats from weighted residual outer products
+    (residuals (..., R, 3), weights (..., R)), scaled by the continuous
+    support s = w_sum / (w_sum + 0.1)."""
+    w_sum = weights.sum(-1)
+    w_norm = weights / (w_sum[..., None] + eps_mass)
     rrT_psd, _ = linalg.domain_projection_psd(linalg.sym(_weighted_outer(w_norm, residuals)))
     support = w_sum / (w_sum + 0.1)
-    return _one_block(support * rrT_psd, 2, support)
+    return _one_block(support[..., None, None] * rrT_psd, 2, support)

@@ -1,16 +1,23 @@
-"""IMU-driven prediction (counterpart of the JAX package's ops/predict.py:predict_imu).
+"""Prediction operators (counterpart of the JAX package's ops/predict.py).
 
-The preintegration propagates the mean (pose composes the preintegrated
-delta, velocity integrates the gravity-corrected accel) and its noise
-inflates the covariance, EKF style:
+predict_diffusion ('evidence' IMU mode): the mean does not move and the
+covariance follows the OU diffusion
+
+    Sig' = e^{-2 lambda dt} Sig + (1 - e^{-2 lambda dt}) / (2 lambda) Q
+
+predict_imu ('predict' IMU mode, the flagship filter): the preintegration
+propagates the mean (pose composes the preintegrated delta, velocity
+integrates the gravity-corrected accel) and its noise inflates the
+covariance, EKF style:
 
     p'   = p + v dt + R dp_body
     R'   = R Exp(drotvec)
     v'   = v + R dv_body
     Sig' = J OU(Sig) J^T + blkdiag(Sg dt_int | Sa dt^3, Sa dt_int)
 
-Beliefs and increments may carry a leading hypothesis dim; Q and the noise
-blocks are shared.
+Both round-trip through moment form with PSD projections on the predicted
+covariance and the re-inverted information matrix. Beliefs and increments
+may carry a leading hypothesis dim; Q and the noise blocks are shared.
 """
 
 from __future__ import annotations
@@ -24,6 +31,47 @@ from gcslam_torch.models.belief import Belief
 from gcslam_torch.ops import linalg, se3
 from gcslam_torch.ops.certs import Cert, make_cert, TRIGGERS
 from gcslam_torch.ops.se3 import mv
+
+
+def predict_diffusion(
+    belief_prev: Belief,
+    Q: torch.Tensor,
+    dt_sec: torch.Tensor,
+    eps_psd: float = C.EPS_PSD,
+    eps_lift: float = C.EPS_LIFT,
+    lambda_ou: float = C.OU_DAMPING_LAMBDA,
+) -> Tuple[Belief, Cert]:
+    mean_prev, _ = linalg.spd_solve_lifted(belief_prev.L, belief_prev.h, eps_lift)
+    cov_prev, lift_prev = linalg.spd_inverse_lifted(belief_prev.L, eps_lift)
+
+    exp_factor = torch.exp(-2.0 * lambda_ou * dt_sec)
+    diffusion_coeff = (1.0 - exp_factor) / (2.0 * lambda_ou + torch.finfo(cov_prev.dtype).eps)
+    cov_pred = exp_factor * cov_prev + diffusion_coeff * Q
+
+    cov_psd, cert_cov = linalg.domain_projection_psd(cov_pred, eps_psd)
+    L_pred, lift_inv = linalg.spd_inverse_lifted(cov_psd, eps_lift)
+    L_psd, cert_L = linalg.domain_projection_psd(L_pred, eps_psd)
+    h_pred = mv(L_psd, mean_prev)
+
+    cert = make_cert(
+        exact=False,
+        triggers=TRIGGERS["PredictDiffusion"],
+        eig_min=cert_L.eig_min,
+        eig_max=cert_L.eig_max,
+        cond=cert_L.cond,
+        near_null_count=cert_L.near_null_count,
+        lift_strength=lift_prev + lift_inv,
+        psd_projection_delta=cert_cov.projection_delta + cert_L.projection_delta,
+        dt_scale=dt_sec,
+    )
+    belief_pred = Belief(
+        X_anchor=belief_prev.X_anchor,
+        z_lin=belief_prev.z_lin,
+        L=L_psd,
+        h=h_pred,
+        stamp=belief_prev.stamp + dt_sec,
+    )
+    return belief_pred, cert
 
 
 def predict_imu(

@@ -81,10 +81,12 @@ def test_validate_accepts_the_same_configs(overrides):
     dict(map_gn_shared=False), dict(k_shortlist=0), dict(ot_subtract_row_min=True),
 ])
 def test_unported_options_are_refused(overrides):
+    """The option groups the first slices refused now have their code paths:
+    check_ported accepts them (their parity with the JAX package is in
+    tests/test_torch_modes*.py)."""
     cfg = TorchConfig(**overrides)
     cfg.validate()
-    with pytest.raises(NotImplementedError):
-        cfg.check_ported()
+    cfg.check_ported()
     TorchConfig().check_ported()
 
 

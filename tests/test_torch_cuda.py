@@ -100,6 +100,36 @@ def test_run_bag_on_cuda_matches_cpu(cuda):
     np.testing.assert_allclose(gpu.pose.cpu().numpy(), cpu.pose.numpy(), rtol=0, atol=1e-5)
 
 
+def test_per_hypothesis_run_bag_on_cuda_matches_cpu(cuda):
+    """The per-hypothesis map branch (map_share_extraction=False,
+    map_gn_shared=False) over 3 scans on the card and on the CPU: poses
+    within the tolerance of test_run_bag_on_cuda_matches_cpu, and on the card
+    one Sinkhorn launch per GN round, each on all K_HYP problems."""
+    from gcslam_torch import constants as C
+    from gcslam_torch.ops import association
+
+    batches = generate(SyntheticConfig(n_scans=3, n_points=512), device="cpu").batches
+    cfg = PipelineConfig(map_share_extraction=False, map_gn_shared=False, **SMALL)
+    _, cpu = runner.run_bag(batches, cfg, device="cpu")
+    shapes = []
+    real = association.sinkhorn_unbalanced
+
+    def recording(Cm, *args):
+        shapes.append(tuple(Cm.shape))
+        return real(Cm, *args)
+
+    association.sinkhorn_unbalanced = recording
+    try:
+        before = sinkhorn.COUNTER.launches
+        _, gpu = runner.run_bag(batches, cfg, device=cuda)
+        launches = sinkhorn.COUNTER.launches - before
+    finally:
+        association.sinkhorn_unbalanced = real
+    assert launches == cfg.map_icp_iters * 3
+    assert shapes == [(C.K_HYP, cfg.n_surfel, cfg.k_assoc)] * launches
+    np.testing.assert_allclose(gpu.pose.cpu().numpy(), cpu.pose.numpy(), rtol=0, atol=1e-5)
+
+
 def _splats(P, H, W, device, seed=11):
     """Screen splats of a seeded random scene (tests/test_rendering_pallas.py's
     recipe, scaled to the image)."""

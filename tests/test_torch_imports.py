@@ -18,6 +18,8 @@ def test_port_imports_without_jax():
         "import gcslam_torch.frontend.camera, gcslam_torch.outputs.rendering, gcslam_torch.outputs.raster\n"
         "import gcslam_torch.outputs.tum, gcslam_torch.outputs.splat_export, gcslam_torch.outputs.diagnostics\n"
         "import gcslam_torch.tools.view_splats, gcslam_torch.ops.cuda_build\n"
+        "import gcslam_torch.frontend.loop, gcslam_torch.utils.checkpoint\n"
+        "from gcslam_torch.models.runner import run_scan, run_stream, run_chunked, DeadEndMonitor\n"
         "bad = [m for m in sys.modules if m.startswith(('jax', 'gcslam_tpu')) and sys.modules[m]]\n"
         "assert not bad, bad\n"
     )
