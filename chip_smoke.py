@@ -51,7 +51,20 @@ Phases, in order; any failure exits non-zero before the result line:
  10. filter options, 20 scans each at production budgets:
      imu_mode="evidence", odom_pose_mode="relative", k_shortlist=0,
      ot_subtract_row_min=True: finite poses, the ATE gate, exactly
-     map_icp_iters x n_scans launches, each on (1024, 8).
+     map_icp_iters x n_scans launches, each on (1024, 8);
+ 11. bag replay: frontend/bag_synth writes a 50-scan Kimera-schema rosbag2
+     .db3 (VLP-16 clouds of 28,800 returns, IMU, odometry, 640 x 480 JPEG +
+     16UC1 frames, pre-skewed clocks) and a TUM ground truth; load_bag
+     decodes it through the native decoder (csrc/bag_decode.cpp, built with
+     g++ beside the nvcc builds); `python -m gcslam_torch.eval.run` runs it at
+     configs/gc_kimera.yaml's budgets with --no-camera (the card's host has
+     no libjpeg headers; see PERF.md): every artifact exists and parses, the
+     audit passes, finite poses, exactly map_icp_iters x n_scans Sinkhorn
+     launches all on (n_surfel, k_assoc) = (512, 8), ATE under the
+     rehearsal gate and within 0.05 m of the JAX package's on the same bag
+     (the range it takes over one-ulp nudges of the LiDAR extrinsic, see
+     BAG_LIDAR_X); the port's ATE over the same nudges; then load_bag alone
+     and 5 warm-up and 45 timed scans.
 Before the last line it prints {"paths": ...} and {"kernels": [...]}; the
 last line is {"ok": true, "device": {...}}. Files go to results/chip_smoke/.
 """
@@ -73,7 +86,8 @@ N_WARMUP = 5
 N_DETERMINISM = 10
 GATE_ATE_TRANS_RMSE_M = 0.30
 GATE_ATE_ROT_RMSE_DEG = 4.0
-SINKHORN_CASES = [(1, 1024, 8), (4, 1024, 8), (1, 1536, 8), (1, 257, 8), (1, 1, 8), (1, 2048, 8), (4, 129, 20)]
+SINKHORN_CASES = [(1, 1024, 8), (4, 1024, 8), (1, 1536, 8), (1, 512, 8), (1, 257, 8), (1, 1, 8), (1, 2048, 8),
+                  (4, 129, 20)]
 SINKHORN_ARGS = dict(epsilon=0.05, tau_a=1.0, tau_b=1.0, n_iters=50)
 TOL = {"float32": dict(rtol=2e-5, atol=1e-7), "float64": dict(rtol=1e-10, atol=1e-30)}
 RASTER_CASES = [(4096, 240, 320), (4096, 360, 480)]  # render_atlas at RenderParams(); the viewer
@@ -103,6 +117,39 @@ OPTIONS = {
     "full_pool": dict(k_shortlist=0),
     "row_min": dict(ot_subtract_row_min=True),
 }
+BAG_SYNTH = dict(n_scans=50, n_points=28800, seed=0)  # VLP-16 at 10 Hz: 16 x 1800 returns a scan
+BAG_POINTS = 8192  # the point budget the frontend resamples each scan to
+BAG_CAM_SIZE = (640, 480)
+BAG_CONFIG = os.path.join("configs", "gc_kimera.yaml")
+# The replay of this bag is ill-conditioned in the JAX package itself: a
+# 1e-7 m nudge of the LiDAR extrinsic moves its scan-4 pose by 3.1e-3 m and
+# its trajectory by up to 0.28 m, and its ATE lands anywhere in
+# 0.019-0.135 m over the three nudges below. So the
+# reference is the JAX package's ATE at the config's LiDAR extrinsic and at
+# three nudges of its x translation by 1e-7 or 3e-7 m (which change the
+# float32 rounding of a share of the points), and the port's run is held
+# within BAG_ATE_BOUND_M of that range. Measured on a CPU with the JAX
+# package's own CLIs:
+#   python -m gcslam_tpu.tools.make_synth_bag --out kimera_synth.db3 \
+#       --gt kimera_synth_gt.tum --config configs/gc_kimera.yaml --scans 50 \
+#       --points 28800 --trajectory ramp --odom-model additive --drift 0.02 --seed 0
+# (the rows write_synth_bag(SyntheticConfig(**BAG_SYNTH)) writes here, the
+# same bytes: tests/test_torch_bag.py), then for each x of BAG_LIDAR_X
+#   python -m gcslam_tpu.eval.run --cpu --no-camera --bag kimera_synth.db3 \
+#       --config configs/gc_kimera.yaml --gt kimera_synth_gt.tum --frontend-set \
+#       "T_base_lidar=[x, -0.100474, 0.108987, -0.002723, -0.069383, 0.028979]"
+BAG_LIDAR_X = {"config": -0.065447, "+1e-7": -0.0654469, "-1e-7": -0.0654471, "+3e-7": -0.0654467}
+JAX_BAG_ATE = {  # m, deg
+    "config": (0.02089121266654113, 0.4485889270515829),
+    "+1e-7": (0.1346359666829979, 2.7602189851207664),
+    "-1e-7": (0.018777257144953364, 0.45465630919970734),
+    "+3e-7": (0.05663981843638647, 0.9072324468394252),
+}
+BAG_ATE_BOUND_M = 0.05  # tests/test_pipeline.py:395
+REHEARSAL_GATE = (0.38, 4.0)  # m, deg: the rehearsal's gate (REHEARSAL_r05.json)
+BAG_ARTIFACTS = ["runtime_manifest.json", "trajectory.tum", "ground_truth.tum", "diagnostics.npz",
+                 "splat_export.npz", "metrics.json", "metrics.csv", "dashboard.html", "map_events.jsonl",
+                 "audit.json"]
 
 
 def fail(msg: str) -> None:
@@ -187,13 +234,14 @@ def bound(n_bytes: float, n_ops: float, peak_ops: float):
 
 
 def phase_build():
-    """Both kernels' nvcc builds at once."""
+    """Both kernels' nvcc builds and the bag decoder's g++ build at once."""
+    from gcslam_torch.frontend import native
     from gcslam_torch.ops import sinkhorn
     from gcslam_torch.outputs import raster
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        paths = list(pool.map(lambda m: m.build(), (sinkhorn, raster)))
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        paths = list(pool.map(lambda m: m.build(), (sinkhorn, raster, native)))
     print(f"built {', '.join(p.name for p in paths)} in {time.perf_counter() - t0:.1f} s (in parallel)")
     for mod in (sinkhorn, raster):
         for line in ptxas_summary(mod.build_log()):
@@ -226,8 +274,8 @@ def sinkhorn_bound(B: int, N: int, K: int, n_iters: int, itemsize: int, peak: fl
 
 def phase_sinkhorn(device):
     """Sinkhorn kernel vs plain on the card; returns the records, keyed by
-    (B, N), at the flagship (1, 1024), camera-path (1, 1536) and
-    per-hypothesis (4, 1024) shapes, f64."""
+    (B, N), at the flagship (1, 1024), camera-path (1, 1536), bag-replay
+    (1, 512) and per-hypothesis (4, 1024) shapes, f64."""
     import torch
     from gcslam_torch.ops import sinkhorn
 
@@ -262,7 +310,7 @@ def phase_sinkhorn(device):
             print(f"sinkhorn {name} B={B} N={N} K={K}: cluster {cl} x {threads} threads, max|err| {err:.3e}, "
                   f"kernel {ms * 1e3:.1f} us/call (events), device {fmt_us(dev_ms)}, plain {plain_ms * 1e3:.1f} "
                   f"us/call, bound {bound_ms * 1e3:.3f} us ({bound_by})")
-            if (B, N) in ((1, 1024), (1, 1536), (4, 1024)) and dtype == torch.float64:  # the main paths'
+            if (B, N) in ((1, 1024), (1, 1536), (1, 512), (4, 1024)) and dtype == torch.float64:  # the main paths'
                 per_iter_us = None if dev_ms is None else 1e3 * dev_ms / n_iters
                 records[(B, N)] = dict(ms=ms, device_ms=dev_ms, per_iter_us=per_iter_us, cluster=cl, threads=threads,
                                   plain_ms=plain_ms, max_abs_err=err, bound_ms=bound_ms, bound_by=bound_by)
@@ -767,6 +815,135 @@ def phase_options(device, run):
     return records, total
 
 
+def check_artifacts(out_dir: str, n: int) -> None:
+    """Every artifact of the eval run exists and parses."""
+    for name in BAG_ARTIFACTS:
+        path = os.path.join(out_dir, name)
+        if not os.path.exists(path):
+            fail(f"bag replay: {name} was not written")
+        if name.endswith(".json"):
+            json.load(open(path))
+        elif name.endswith(".jsonl"):
+            lines = [json.loads(line) for line in open(path)]
+            if len([x for x in lines if "event" not in x]) != n:
+                fail(f"bag replay: {name} does not hold one line per scan")
+        elif name.endswith(".tum"):
+            if np.loadtxt(path).reshape(-1, 8).shape != (n, 8):
+                fail(f"bag replay: {name} does not hold {n} poses")
+        elif name.endswith(".npz"):
+            with np.load(path) as z:
+                if not z.files:
+                    fail(f"bag replay: {name} is empty")
+        elif name.endswith(".csv"):
+            if not open(path).readline().startswith("key,value"):
+                fail(f"bag replay: {name} has no key,value header")
+        elif "<svg" not in open(path).read():
+            fail(f"bag replay: {name} holds no panel")
+
+
+def phase_bag(device, sk_bag):
+    """A Kimera-schema bag written on the host, decoded and replayed through
+    `gcslam_torch.eval.run`; returns its record and the Sinkhorn launches."""
+    import dataclasses
+
+    import torch
+    from gcslam_torch.eval import run as eval_run
+    from gcslam_torch.frontend import rosbag
+    from gcslam_torch.frontend.bag_synth import write_synth_bag
+    from gcslam_torch.frontend.synthetic import SyntheticConfig
+    from gcslam_torch.models import runner
+    from gcslam_torch.models.config import config_from_file
+    from gcslam_torch.ops import sinkhorn
+
+    bag_dir = os.path.join(OUT_DIR, "bag")
+    os.makedirs(bag_dir, exist_ok=True)
+    bag, gt = os.path.join(bag_dir, "kimera_synth.db3"), os.path.join(bag_dir, "kimera_synth_gt.tum")
+    if os.path.exists(bag):
+        os.remove(bag)
+    bag_cfg = dataclasses.replace(rosbag.bag_config_from_file(BAG_CONFIG), n_points=BAG_POINTS)
+    t0 = time.perf_counter()
+    summary = write_synth_bag(bag, SyntheticConfig(**BAG_SYNTH), bag_cfg, gt_path=gt, cam_size=BAG_CAM_SIZE)
+    write_s = time.perf_counter() - t0
+    n = summary["n_scans"]
+    print(f"bag written in {write_s:.1f} s: {summary['n_messages']} messages ({n} clouds of {BAG_SYNTH['n_points']} "
+          f"returns, {summary['n_imu']} IMU, {summary['n_odom']} odometry, {summary['n_cam_frames']} RGB-D frames "
+          f"at {BAG_CAM_SIZE[0]} x {BAG_CAM_SIZE[1]}), {os.path.getsize(bag) / 1e6:.1f} MB")
+
+    cfg = config_from_file(BAG_CONFIG, with_camera=False)
+    expected = (cfg.n_surfel, cfg.k_assoc)
+    args = ["--bag", bag, "--config", BAG_CONFIG, "--gt", gt, "--points", str(BAG_POINTS), "--no-camera"]
+    out_dir = os.path.join(bag_dir, "run")
+    with sinkhorn_shapes() as shapes:
+        sinkhorn.COUNTER.reset()
+        t0 = time.perf_counter()
+        metrics = eval_run.main(args + ["--out", out_dir])
+        run_s = time.perf_counter() - t0
+        launches = sinkhorn.COUNTER.launches
+    check_artifacts(out_dir, n)
+    audit = json.load(open(os.path.join(out_dir, "audit.json")))
+    poses = np.load(os.path.join(out_dir, "diagnostics.npz"))["poses"]
+    ate, rpe = metrics["ate"], metrics["rpe"]["1m"]
+    ate_m, ate_deg = ate["translation"]["rmse"], ate["rotation_deg"]["rmse"]
+    jax_m = [m for m, _ in JAX_BAG_ATE.values()]
+    print(f"eval.run on the bag: {run_s:.1f} s in all (load_bag {metrics['load_s']:.2f} s, replay "
+          f"{metrics['wall_s']:.2f} s); ATE {ate_m:.4f} m / {ate_deg:.4f} deg, RPE 1 m {rpe['translation']['rmse']:.4f} "
+          f"m / {rpe['rotation_deg']['rmse']:.4f} deg ({rpe['n_pairs']} pairs); audit "
+          f"{'all pass' if audit['all_pass'] else 'FAILED'} ({len(audit) - 1} checks); sinkhorn launches {launches} "
+          f"on {sorted(shapes)}")
+    print(f"JAX package on the same bag: ATE {JAX_BAG_ATE['config'][0]:.4f} m / {JAX_BAG_ATE['config'][1]:.4f} deg at "
+          f"the config's extrinsic (|port - JAX| {abs(ate_m - JAX_BAG_ATE['config'][0]):.4f} m), "
+          f"{min(jax_m):.4f}-{max(jax_m):.4f} m over the extrinsic nudges {list(BAG_LIDAR_X)}")
+    if any(m > REHEARSAL_GATE[0] or d > REHEARSAL_GATE[1] for m, d in JAX_BAG_ATE.values()):
+        print(f"note: the JAX package's ATE on this bag is above the rehearsal gate {REHEARSAL_GATE}")
+    if poses.shape != (n, 6) or not np.isfinite(poses).all():
+        fail(f"bag replay: poses not finite or of shape {poses.shape}")
+    if not audit["all_pass"]:
+        fail(f"bag replay: audit failed: {[k for k, v in audit.items() if isinstance(v, dict) and not v['pass']]}")
+    if launches != cfg.map_icp_iters * n or shapes != {expected}:
+        fail(f"bag replay: {launches} sinkhorn launches on {sorted(shapes)}, expected {cfg.map_icp_iters * n} "
+             f"on {expected}")
+    if not min(jax_m) - BAG_ATE_BOUND_M <= ate_m <= max(jax_m) + BAG_ATE_BOUND_M:
+        fail(f"bag replay: ATE {ate_m:.4f} m is more than {BAG_ATE_BOUND_M} m outside the JAX package's "
+             f"{min(jax_m):.4f}-{max(jax_m):.4f} m")
+    if ate_m > REHEARSAL_GATE[0] or ate_deg > REHEARSAL_GATE[1]:
+        fail(f"bag replay: ATE {ate_m:.4f} m / {ate_deg:.4f} deg is above the rehearsal gate {REHEARSAL_GATE}")
+
+    # the port's own spread: the same nudges of the LiDAR extrinsic
+    base = list(bag_cfg.T_base_lidar)
+    nudged = {}
+    for name, x in BAG_LIDAR_X.items():
+        if name == "config":
+            continue
+        m = eval_run.main(args + ["--frontend-set", f"T_base_lidar={json.dumps([x] + base[1:])}",
+                                  "--out", os.path.join(bag_dir, f"run_{name}")])
+        nudged[name] = (m["ate"]["translation"]["rmse"], m["ate"]["rotation_deg"]["rmse"])
+    port_m = [ate_m] + [m for m, _ in nudged.values()]
+    print(f"port over the same nudges: ATE {', '.join(f'{k} {m:.4f} m / {d:.4f} deg' for k, (m, d) in nudged.items())}"
+          f"; {min(port_m):.4f}-{max(port_m):.4f} m with the config's")
+
+    # the frontend alone, then the replay timed after a warm-up
+    t0 = time.perf_counter()
+    batches, _, _ = rosbag.load_bag(bag, config=dataclasses.replace(bag_cfg, with_camera=False), device=device)
+    torch.cuda.synchronize()
+    load_ms = 1e3 * (time.perf_counter() - t0) / len(batches)
+    state, _ = runner.run_bag(batches[:N_WARMUP], cfg, device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    runner.run_bag(batches[N_WARMUP:], cfg, state=state, device=device)
+    torch.cuda.synchronize()
+    replay_ms = 1e3 * (time.perf_counter() - t0) / (len(batches) - N_WARMUP)
+    print(f"bag frontend: decode + load_bag {load_ms:.2f} ms/scan; replay {replay_ms:.2f} ms/scan over "
+          f"{len(batches) - N_WARMUP} scans after {N_WARMUP}; sinkhorn at {expected}: device "
+          f"{fmt_us(sk_bag['device_ms'])}/call, events {sk_bag['ms'] * 1e3:.1f} us/call")
+    record = {"n_scans": n, "n_returns": BAG_SYNTH["n_points"], "n_points": BAG_POINTS, "camera": False,
+              "bag_write_s": write_s, "load_ms_per_scan": load_ms, "replay_ms_per_scan": replay_ms,
+              "eval_run_s": run_s, "ate_m": ate_m, "ate_deg": ate_deg, "rpe_1m_m": rpe["translation"]["rmse"],
+              "rpe_1m_deg": rpe["rotation_deg"]["rmse"], "ate_nudged": nudged, "jax_ate": JAX_BAG_ATE,
+              "audit_checks": len(audit) - 1, "sinkhorn_launches": launches, "sinkhorn_shape": list(expected),
+              "sinkhorn_512": sk_bag}
+    return record, launches
+
+
 def main() -> None:
     import torch
 
@@ -810,7 +987,11 @@ def main() -> None:
     options, launches_opt = phase_options(device, run)
     lap("phase 10")
 
-    launches_sinkhorn = launches_flag + launches_cam + launches_hyp + launches_live + launches_opt
+    # 11. a Kimera-schema bag through eval.run
+    bag, launches_bag = phase_bag(device, sk[(1, 512)])
+    lap("phase 11")
+
+    launches_sinkhorn = launches_flag + launches_cam + launches_hyp + launches_live + launches_opt + launches_bag
     sk_main = sk[(4, 1024)]  # the per-hypothesis path's shape
     kernels = [
         dict(name="sinkhorn_unbalanced", route="cuda", source="gcslam_torch/csrc/sinkhorn.cu",
@@ -835,6 +1016,7 @@ def main() -> None:
         "per_hypothesis_shared_extraction": shared_ext,
         **live,
         "options": options,
+        "bag": bag,
         "seconds": seconds,
     }}))
     print(json.dumps({"kernels": kernels}))

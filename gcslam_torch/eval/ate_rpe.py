@@ -1,9 +1,10 @@
-"""Trajectory ATE (counterpart of the JAX package's eval/ate_rpe.py: compute_ate
-and what it calls). Pure NumPy; poses are (N, 6) [trans, rotvec]."""
+"""Trajectory metrics (counterpart of the JAX package's eval/ate_rpe.py): ATE
+(translation + rotation) after initial-pose or Umeyama alignment, and RPE
+over 1/5/10 m path windows. Pure NumPy; poses are (N, 6) [trans, rotvec]."""
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List
 
 import numpy as np
 
@@ -58,6 +59,10 @@ def _R_to_rotvec(R: np.ndarray) -> np.ndarray:
         axis = axis / np.where(nrm == 0, 1.0, nrm)
         rv = np.where(near_pi[..., None], axis * theta[..., None], rv)
     return rv
+
+
+def _compose(a_R, a_t, b_R, b_t):
+    return a_R @ b_R, (a_R @ b_t[..., None])[..., 0] + a_t
 
 
 def align_initial_pose(est: np.ndarray, gt: np.ndarray) -> np.ndarray:
@@ -118,3 +123,31 @@ def compute_ate(est: np.ndarray, gt: np.ndarray, align: str = "initial") -> Dict
         "rot_offset_180_suspect": bool(float(np.median(r_err)) > 150.0),
         "n_poses": int(est.shape[0]),
     }
+
+
+def compute_rpe(est: np.ndarray, gt: np.ndarray, deltas_m: List[float] = (1.0, 5.0, 10.0)) -> Dict:
+    """Relative pose error over path-length windows (multi-scale)."""
+    gt_t = gt[:, :3]
+    cum = np.concatenate([[0.0], np.cumsum(np.linalg.norm(np.diff(gt_t, axis=0), axis=1))])
+    R_e = _rotvec_to_R(est[:, 3:6])
+    R_g = _rotvec_to_R(gt[:, 3:6])
+    out = {}
+    for delta in deltas_m:
+        terrs, rerrs = [], []
+        for i in range(len(est)):
+            j = int(np.searchsorted(cum, cum[i] + delta))
+            if j >= len(est):
+                break
+            dR_g = R_g[i].T @ R_g[j]
+            dt_g = R_g[i].T @ (gt_t[j] - gt_t[i])
+            dR_e = R_e[i].T @ R_e[j]
+            dt_e = R_e[i].T @ (est[j, :3] - est[i, :3])
+            terrs.append(np.linalg.norm(dt_e - dt_g))
+            rerrs.append(np.degrees(np.linalg.norm(_R_to_rotvec(dR_e @ dR_g.T))))
+        key = f"{delta:g}m"
+        if terrs:
+            out[key] = {"translation": _stats(np.asarray(terrs)), "rotation_deg": _stats(np.asarray(rerrs)),
+                        "n_pairs": len(terrs)}
+        else:
+            out[key] = {"translation": None, "rotation_deg": None, "n_pairs": 0}
+    return out

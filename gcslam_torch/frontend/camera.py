@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from gcslam_torch import constants as C
 from gcslam_torch.ops import linalg, se3
 from gcslam_torch.ops.association import topk_lowest_index
+from gcslam_torch.utils.device import resolve_device
 from gcslam_torch.utils.dtypes import BELIEF_DTYPE, POINT_DTYPE
 
 
@@ -208,22 +209,25 @@ def lidar_depth_evidence(
     d2 = (uv[:, 0:1] - u_l[None, :]) ** 2 + (uv[:, 1:2] - v_l[None, :]) ** 2  # (n, M)
     w_px = torch.exp(-0.5 * d2 / radius_px**2) * in_front[None, :]
 
-    # Route A: robust weighted depth
+    # Route A: robust weighted depth. With float64 pixels (the native
+    # route's) the weights are float64 and the float32 LiDAR operands are
+    # promoted, as JAX promotes a mixed product.
+    zw = z.to(w_px.dtype)
     wsum = w_px.sum(1) + eps
-    z_mean = w_px @ z / wsum
+    z_mean = w_px @ zw / wsum
     dev = (z[None, :] - z_mean[:, None]).abs()
     mad = (w_px * dev).sum(1) / wsum + 1e-3
     w_rob = w_px / (1.0 + (dev / (1.4826 * mad[:, None])) ** 2)
     wsum_r = w_rob.sum(1) + eps
-    z_a = w_rob @ z / wsum_r
-    var_a = torch.clamp((w_rob @ (z * z)) / wsum_r - z_a**2, min=1e-6)  # E[z^2] - E[z]^2
+    z_a = w_rob @ zw / wsum_r
+    var_a = torch.clamp((w_rob @ (z * z).to(w_px.dtype)) / wsum_r - z_a**2, min=1e-6)  # E[z^2] - E[z]^2
     lam_a = wsum_r / (wsum_r + 1.0) / var_a  # support-scaled precision
 
     # Route B: plane fit p.n = d of the neighbourhood; depth where the
     # feature ray ((x, y, 1) z) crosses the plane
     x_r = (uv[:, 0] - intr.cx) / intr.fx
     y_r = (uv[:, 1] - intr.cy) / intr.fy
-    mean_p = (w_rob @ lidar_cam) / wsum_r[:, None]  # (n, 3)
+    mean_p = (w_rob @ lidar_cam.to(w_px.dtype)) / wsum_r[:, None]  # (n, 3)
     diff = lidar_cam[None, :, :] - mean_p[:, None, :]  # (n, M, 3)
     cov = (w_rob[..., None] * diff).transpose(-1, -2) @ diff / wsum_r[:, None, None]
     cov = linalg.sym(cov) + 1e-6 * torch.eye(3, dtype=cov.dtype, device=cov.device)
@@ -253,10 +257,58 @@ def extract_camera_features(
 ) -> CameraFeatures:
     """Full visual frontend: corners -> camera depth + covariance -> LiDAR
     depth evidence -> PoE fusion -> 3-D Gaussian info form + vMF lobe."""
-    f = BELIEF_DTYPE
     uv, score, valid = harris_corners(gray, n_feat)
-
     z_cam, _, resid_var = depth_plane_fit(depth, uv)
+    return _lift(uv, score, valid, z_cam, resid_var, rgb, intr, lidar_cam, lidar_w, n_feat, gray.dtype)
+
+
+def extract_camera_features_native(
+    gray: np.ndarray,  # (H, W) float [0, 1] or uint8, on the host
+    depth: np.ndarray,  # (H, W) float metres, 0 = invalid
+    rgb: np.ndarray,  # (H, W, 3) float [0, 1]
+    intr: PinholeIntrinsics,
+    lidar_cam=None,  # (M, 3) points in camera frame (array or tensor)
+    lidar_w=None,
+    n_feat: int = C.N_FEAT,
+    device=None,
+) -> CameraFeatures:
+    """The bag route of the visual frontend: corners, robust depth and the
+    plane fit run in C++ on the host (the bag decoder's
+    gcslam_visual_features, the reference's src/visual_feature_node.cpp
+    stage); the LiDAR depth evidence, PoE fusion and Gaussian/vMF lift run
+    here in torch on `device` (default: the CUDA card), as in the JAX
+    package's extract_camera_features_native."""
+    from gcslam_torch.frontend import native
+
+    g8 = np.asarray(gray)
+    if g8.dtype != np.uint8:
+        g8 = np.clip(np.asarray(gray, dtype=np.float64) * 255.0, 0, 255).astype(np.uint8)
+    n, uv_n, score_n, z_n, zvar_n, _normal, _gray01 = native.visual_features(
+        g8, np.asarray(depth, np.float32), max_feat=n_feat)
+
+    dev = resolve_device(device)
+    f = BELIEF_DTYPE
+
+    def rows(x, fill: float) -> torch.Tensor:
+        out = torch.full((n_feat,) + x.shape[1:], fill, dtype=f, device=dev)
+        out[:n] = torch.as_tensor(x[:n], device=dev).to(f)
+        return out
+
+    valid = torch.zeros(n_feat, dtype=torch.bool, device=dev)
+    valid[:n] = True
+    if lidar_cam is not None:
+        lidar_cam = torch.as_tensor(lidar_cam, device=dev)
+        lidar_w = None if lidar_w is None else torch.as_tensor(lidar_w, device=dev)
+    return _lift(rows(uv_n, 0.0), rows(score_n, 0.0), valid, rows(z_n, 0.0), rows(zvar_n, 1.0),
+                 torch.as_tensor(np.asarray(rgb), device=dev), intr, lidar_cam, lidar_w, n_feat, f)
+
+
+def _lift(uv, score, valid, z_cam, resid_var, rgb, intr: PinholeIntrinsics, lidar_cam, lidar_w, n_feat: int,
+          evidence_dtype) -> CameraFeatures:
+    """Both routes' lift of the corners: camera depth and its variance, the
+    LiDAR depth evidence (cast to `evidence_dtype`), PoE depth fusion, the
+    3-D Gaussian in information form, the vMF lobe and the colour."""
+    f = BELIEF_DTYPE
     z_valid = z_cam > 0.05
     sigma_z_sq = resid_var + 0.0025 * z_cam**2 + 1e-6  # stereo-like growth
 
@@ -264,8 +316,8 @@ def extract_camera_features(
     if lidar_cam is not None:
         w_l = torch.ones(lidar_cam.shape[0], device=lidar_cam.device) if lidar_w is None else lidar_w
         lam_z_l, z_l = lidar_depth_evidence(uv, lidar_cam.to(POINT_DTYPE), w_l.to(POINT_DTYPE), intr)
-        lam_z_l = lam_z_l.to(gray.dtype)
-        z_l = z_l.to(gray.dtype)
+        lam_z_l = lam_z_l.to(evidence_dtype)
+        z_l = z_l.to(evidence_dtype)
     else:
         lam_z_l = torch.zeros_like(z_cam)
         z_l = torch.zeros_like(z_cam)

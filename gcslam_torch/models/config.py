@@ -205,3 +205,38 @@ PARAM_ENUMS = [
     ("odom_pose_mode", ("absolute", "relative")),
     ("pose_modality_mode", ("cam_to_lidar", "matched")),
 ]
+
+
+def read_config_mapping(path: str) -> dict:
+    """A run-config file as a mapping: JSON, else YAML."""
+    import json
+
+    with open(path) as f:
+        text = f.read()
+    try:
+        return json.loads(text)
+    except json.JSONDecodeError:
+        import yaml
+
+        return yaml.safe_load(text)
+
+
+def config_from_file(path: str, **overrides) -> PipelineConfig:
+    """A PipelineConfig from a YAML or JSON file (the single-config contract
+    of the reference's config/gc_unified.yaml). Unknown keys are an error,
+    keyword arguments override the file's values, and the result is
+    validate()d. The `frontend:` section (rosbag.bag_config_from_file) and
+    the `eval:` section are read by their own loaders."""
+    data = read_config_mapping(path)
+    if not isinstance(data, dict):
+        raise ValueError(f"{path}: expected a mapping at top level, got {type(data)}")
+    data.pop("frontend", None)
+    data.pop("eval", None)
+    known = {f.name for f in dataclasses.fields(PipelineConfig)}
+    unknown = sorted(set(data) - known)
+    if unknown:
+        raise ValueError(f"{path}: unknown PipelineConfig keys: {unknown}")
+    data.update(overrides)
+    cfg = PipelineConfig(**data)
+    cfg.validate()
+    return cfg

@@ -1,6 +1,7 @@
 """gcslam_torch on the card: the CUDA Sinkhorn and splat-raster kernels
-against their plain PyTorch versions, and the scan step, the camera path
-and the map render on CUDA against the same on the CPU.
+against their plain PyTorch versions, the scan step, the camera path, the
+map render and the bag replay on CUDA against the same on the CPU, and the
+bag decoder's build on the card's host.
 Marked `cuda`; skips where torch.cuda.is_available() is false. This file
 imports no JAX, so it runs on a GPU machine without it:
 
@@ -225,3 +226,66 @@ def test_camera_run_bag_on_cuda_matches_cpu(cuda):
     # across devices the projection's texture hash sees sin's last bit
     # (measured 8.5e-5 on 58 of 57600 values; albedo bound 1e-3)
     torch.testing.assert_close(rgb_g.cpu(), rgb_c, rtol=0, atol=1e-3)
+
+
+def test_bag_decoder_builds_from_a_clean_build_dir(cuda, tmp_path, monkeypatch):
+    """The bag decoder (csrc/bag_decode.cpp) builds with g++ on the card's
+    host into an empty build directory, loads and parses a cloud."""
+    from gcslam_torch import constants as C
+    from gcslam_torch.frontend import bag_synth, cdr, native
+
+    monkeypatch.setattr(native, "BUILD", tmp_path / "build")
+    monkeypatch.setattr(native, "_lib", None)
+    path = native.build()
+    assert path.parent == tmp_path / "build" and [p.name for p in path.parent.iterdir()] == [path.name]
+    n = 64
+    rng = np.random.default_rng(1)
+    raw = np.zeros((n, 22), dtype=np.uint8)
+    xyz = rng.normal(0, 5, (n, 3)).astype("<f4")
+    raw[:, 0:12] = xyz.view(np.uint8).reshape(n, 12)
+    buf = cdr.serialize_pointcloud2(cdr.PointCloud2(cdr.Header(3.5, "lidar"), 1, n, bag_synth._FIELDS, False, 22,
+                                                    22 * n, raw.tobytes(), True))
+    got, _, _, _, stamp = native.parse_pointcloud2(buf, 128, C.NONFINITE_SENTINEL)
+    np.testing.assert_array_equal(got, xyz)
+    assert stamp == 3.5
+
+
+@pytest.mark.parametrize("with_camera", [False, True], ids=["lidar", "camera"])
+def test_bag_load_and_replay_on_cuda_match_cpu(cuda, tmp_path, with_camera):
+    """A 6-scan Kimera-schema bag: load_bag on the card and on the CPU gives
+    the same LiDAR, IMU, odometry and time fields (host-built, bit-equal)
+    and camera rows lifted on each device (float64 reductions in other
+    orders: rtol 1e-9); run_bag at the SMALL budgets on each: poses within
+    the tolerance of test_run_bag_on_cuda_matches_cpu, one Sinkhorn launch
+    per GN round on the card."""
+    import dataclasses
+    import pathlib
+
+    from gcslam_torch.frontend import rosbag
+    from gcslam_torch.frontend.bag_synth import write_synth_bag
+
+    config = pathlib.Path(__file__).resolve().parent.parent / "configs" / "gc_kimera.yaml"
+    base = rosbag.bag_config_from_file(str(config))
+    bag_cfg = dataclasses.replace(base, n_points=512, with_camera=with_camera,
+                                  camera_intrinsics=tuple(x * 80 / 640 for x in base.camera_intrinsics))
+    bag = str(tmp_path / "bag.db3")
+    write_synth_bag(bag, SyntheticConfig(n_scans=6, n_points=1024, seed=0), bag_cfg,
+                    gt_path=str(tmp_path / "gt.tum"), cam_size=(80, 60))
+    cpu_b, _, _ = rosbag.load_bag(bag, config=bag_cfg, device="cpu")
+    gpu_b, _, _ = rosbag.load_bag(bag, config=bag_cfg)
+    assert len(cpu_b) == len(gpu_b) == 6 and gpu_b[0].points.is_cuda
+    for bc, bg in zip(cpu_b, gpu_b):
+        for name in bc._fields:
+            a, b = getattr(bc, name), getattr(bg, name).cpu()
+            if name.startswith("cam_") and a.is_floating_point():
+                torch.testing.assert_close(b, a, rtol=1e-9, atol=1e-12 * float(a.abs().max()))
+            else:
+                assert torch.equal(a, b), name
+    if with_camera:
+        assert min(int(b.cam_valid.sum()) for b in gpu_b) > 0
+    cfg = PipelineConfig(with_camera=with_camera, **SMALL)
+    _, cpu = runner.run_bag(cpu_b, cfg, device="cpu")
+    before = sinkhorn.COUNTER.launches
+    _, gpu = runner.run_bag(gpu_b, cfg)
+    assert sinkhorn.COUNTER.launches - before == cfg.map_icp_iters * 6
+    np.testing.assert_allclose(gpu.pose.cpu().numpy(), cpu.pose.numpy(), rtol=0, atol=1e-5)
