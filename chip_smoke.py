@@ -22,7 +22,8 @@ Phases, in order; any failure exits non-zero before the result line:
      (<= 0.30 m, <= 4.0 deg, initial-pose alignment), and exactly
      map_icp_iters x n_scans Sinkhorn launches;
   4. determinism: two 10-scan flagship runs give bit-equal poses;
-  5. camera path: generate(with_camera=True) and run_bag at
+  5. camera path: generate(with_camera=True) (the native C++ corner stage,
+     as the JAX generator) and run_bag at
      PipelineConfig(with_camera=True) over 50 scans at production budgets;
      finite poses, the camera ATE gate of bench.py (<= 0.30 m, <= 4.0 deg),
      exactly map_icp_iters x n_scans Sinkhorn launches, all at
@@ -48,7 +49,7 @@ Phases, in order; any failure exits non-zero before the result line:
      no map) through run_chunked(chunk=8) with the loop detector: a loop
      fires, max xy error < 1.5 m; save_state / load_state of the chunked
      run's final state bit-equal on the card;
- 10. filter options, 20 scans each at production budgets:
+ 10. filter options, 10 scans each at production budgets:
      imu_mode="evidence", odom_pose_mode="relative", k_shortlist=0,
      ot_subtract_row_min=True: finite poses, the ATE gate, exactly
      map_icp_iters x n_scans launches, each on (1024, 8);
@@ -64,9 +65,27 @@ Phases, in order; any failure exits non-zero before the result line:
      rehearsal gate and within 0.05 m of the JAX package's on the same bag
      (the range it takes over one-ulp nudges of the LiDAR extrinsic, see
      BAG_LIDAR_X); the port's ATE over the same nudges; then load_bag alone
-     and 5 warm-up and 45 timed scans.
-Before the last line it prints {"paths": ...} and {"kernels": [...]}; the
-last line is {"ok": true, "device": {...}}. Files go to results/chip_smoke/.
+     and 5 warm-up and 45 timed scans;
+ 12. the canonical camera-on bag: tools/make_synth_bag with the JAX
+     rehearsal's arguments (circuit, integrated odometry, 16384 raw points,
+     640 x 480 JPEG + 16UC1) at 40 of its 160 scans, then the rehearsal's
+     `full` variant command (eval.run --chunk 10 --loop at
+     configs/gc_kimera.yaml, camera on) with --live-view: every artifact,
+     the audit passes, live.jsonl holds one pose line per scan, exactly
+     map_icp_iters x n_scans Sinkhorn launches all on (n_surfel + n_feat,
+     k_assoc) = (1024, 8), ATE under the rehearsal gate and within 0.05 m
+     of the JAX package's range on the same bag (JAX_CANON_ATE); load_bag
+     with the camera and without it (the camera's share), and one
+     tools/view_splats render of the result through the raster kernel;
+ 13. the f32-belief flagship: phase 3's replay in a child process with
+     GCSLAM_BELIEF_DTYPE=float32 (the dtype binds at import): finite
+     float32 poses, the ATE gate, exactly 100 launches, every one the
+     kernel's f32 instance at (1024, 8); ms/scan and PRECISION_r05.json's
+     certificate fields beside phase 3's f64 run.
+Before the last line it prints {"paths": ...} and {"kernels": [...]}, one
+kernel record per instance the main paths launch (dtype and shape), and
+fails if one was never launched; the last line is {"ok": true, "device":
+{...}}. Files go to results/chip_smoke/.
 """
 
 import contextlib
@@ -82,6 +101,10 @@ import numpy as np
 
 N_SCANS = 50
 N_POINTS = 8192
+# features a 160 x 120 frame of the synthetic world gives the native corner
+# stage, the JAX generator's route: 62-81 a frame on the CPU (the pure
+# Harris route gives > 200)
+MIN_CAM_FEATURES = 50
 N_WARMUP = 5
 N_DETERMINISM = 10
 GATE_ATE_TRANS_RMSE_M = 0.30
@@ -100,6 +123,7 @@ PEAK_F32_PER_S = 67e12
 PEAK_F64_PER_S = 34e12
 RASTER_FLOPS_PER_PAIR = 21  # ~20 FLOPs and one expf per (pixel, splat) pair with w > 0
 OUT_DIR = os.path.join("results", "chip_smoke")
+VIEWER_RENDERS = 2  # phase 7: from the last pose and from the overview
 PER_HYP = dict(map_share_extraction=False, map_gn_shared=False)
 PER_HYP_ATE_BOUND_M = 0.05  # |ATE per-hypothesis - ATE flagship|, tests/test_pipeline.py:395
 N_SHARED_EXTRACTION_SCANS = 10
@@ -110,7 +134,7 @@ N_STREAM_SCANS = 10
 LOITER = dict(n_scans=60, n_points=1024, odom_drift_pos_per_m=0.08, odom_drift_yaw_per_m=0.04, seed=0)
 LOOP_CFG = dict(keyframe_every=5, min_index_gap=15, max_revisit_dist_m=3.0, cooldown_scans=10)
 LOITER_MAX_XY_M = 1.5  # tests/test_pipeline.py::test_chunked_loop_closure_fires
-N_OPTION_SCANS = 20
+N_OPTION_SCANS = 10  # cut from 20 to keep the script near 650 s
 OPTIONS = {
     "imu_evidence": dict(imu_mode="evidence"),
     "odom_relative": dict(odom_pose_mode="relative"),
@@ -147,6 +171,55 @@ JAX_BAG_ATE = {  # m, deg
 }
 BAG_ATE_BOUND_M = 0.05  # tests/test_pipeline.py:395
 REHEARSAL_GATE = (0.38, 4.0)  # m, deg: the rehearsal's gate (REHEARSAL_r05.json)
+# Phase 12: the rehearsal's canonical bag (tools/make_synth_bag with
+# gcslam_tpu/tools/rehearse.py's arguments: circuit, integrated odometry,
+# 16384 raw points, the 640 x 480 camera) cut from 160 to 40 scans, through
+# the `full` variant's eval.run command with --live-view. The JAX package's
+# ATE on the same 40-scan bag, on a CPU, with its own CLIs:
+#   python -m gcslam_tpu.tools.make_synth_bag --out b40.db3 --gt b40_gt.tum \
+#       --config configs/gc_kimera.yaml --scans 40 --trajectory circuit --odom-model integrated
+#   python -m gcslam_tpu.eval.run --cpu --bag b40.db3 --config configs/gc_kimera.yaml \
+#       --gt b40_gt.tum --chunk 10 --loop [--frontend-set "T_base_lidar=[x, y, z, -0.002723, -0.069383, 0.028979]"]
+# at the config's LiDAR extrinsic and at 15 one-ulp nudges of its
+# translation (x by +1e-7 to +5e-7 and -1e-7 to -4e-7 m, y by +-1e-7 and
+# +2e-7 m, z by +-1e-7 and -2e-7 m): all 16 land at 0.088-0.107 m. The
+# replay has a second mode: the map's first big insert (scan 5, 19 -> 144
+# primitives) decides whether scan 7 onwards keeps matching the map
+# (transport mass 3-23 a scan, ATE ~0.027 m) or loses it (mass ~0, odometry
+# carries the pose, ATE ~0.09 m). Which one a run takes follows the last
+# bits of the state after scan 5: the JAX package's own step, replaying
+# scans 6-39 from the port's state after scan 5 (its pose 3.7e-5 m from the
+# JAX package's, the outcome of float32 one-ulp differences at scan 3),
+# takes the low mode: 0.0270 m ("port_state_6" below; `python
+# tests/cross_check.py handover --bag b40.db3 --gt b40_gt.tum --scan 6`).
+# The port's CPU runs read 0.0269 m at the config's extrinsic and 0.0257 /
+# 0.0939 / 0.0263 m at x +1e-7 / -1e-7 / +3e-7 m. The reference range is
+# all of these JAX runs.
+CANON_SCANS = 40
+CANON_SYNTH = ["--scans", str(CANON_SCANS), "--trajectory", "circuit", "--odom-model", "integrated"]
+JAX_CANON_ATE = {  # m, deg
+    "config": (0.09426250328974128, 0.5483186744585582),
+    "x+1e-7": (0.09285447262983573, 0.4343431406008462),
+    "x-1e-7": (0.0895535635955576, 0.621031807913694),
+    "x+2e-7": (0.10110927870748093, 0.7726454137921913),
+    "x-2e-7": (0.09916167495536014, 0.38760276873115673),
+    "x+3e-7": (0.08909868803959582, 0.6296270019753738),
+    "x-3e-7": (0.08893838191746789, 0.6165796347375612),
+    "x+4e-7": (0.1066311390039374, 0.6357193646206043),
+    "x-4e-7": (0.0882152093954025, 0.634223985328636),
+    "x+5e-7": (0.09257306425060137, 0.4613826285102805),
+    "y+1e-7": (0.08836534378940884, 0.6164680033619679),
+    "y-1e-7": (0.09403278981086793, 0.5135805422365823),
+    "y+2e-7": (0.09966369797500949, 0.39786839717691785),
+    "z+1e-7": (0.09355350089728187, 0.5091055771749889),
+    "z-1e-7": (0.0893839550518187, 0.6298740322223437),
+    "z-2e-7": (0.0906827122491074, 0.6104800581212817),
+    "port_state_6": (0.026998326359995283, 0.3464756778121996),
+}
+CANON_ATE_BOUND_M = 0.05  # tests/test_pipeline.py:395
+# Phase 13: the f32-belief flagship (the JAX package's production mode,
+# BENCH_r05.json), in a child process with GCSLAM_BELIEF_DTYPE=float32
+F32_ENV = {"GCSLAM_BELIEF_DTYPE": "float32"}
 BAG_ARTIFACTS = ["runtime_manifest.json", "trajectory.tum", "ground_truth.tum", "diagnostics.npz",
                  "splat_export.npz", "metrics.json", "metrics.csv", "dashboard.html", "map_events.jsonl",
                  "audit.json"]
@@ -272,10 +345,18 @@ def sinkhorn_bound(B: int, N: int, K: int, n_iters: int, itemsize: int, peak: fl
     return bound(n_bytes, n_ops, peak)
 
 
+MAIN_SINKHORN = {  # the main paths' instances: (dtype, B, N) -> the phases that launch it
+    ("float64", 1, 1024): "flagship, live modes, options, canonical camera-on bag (512 surfels + 512 features)",
+    ("float64", 4, 1024): "per hypothesis",
+    ("float64", 1, 1536): "camera path",
+    ("float64", 1, 512): "bag replay, camera off",
+    ("float32", 1, 1024): "f32-belief flagship",
+}
+
+
 def phase_sinkhorn(device):
-    """Sinkhorn kernel vs plain on the card; returns the records, keyed by
-    (B, N), at the flagship (1, 1024), camera-path (1, 1536), bag-replay
-    (1, 512) and per-hypothesis (4, 1024) shapes, f64."""
+    """Sinkhorn kernel vs plain on the card; returns the records of the
+    main paths' instances (MAIN_SINKHORN), keyed by (dtype, B, N)."""
     import torch
     from gcslam_torch.ops import sinkhorn
 
@@ -310,10 +391,11 @@ def phase_sinkhorn(device):
             print(f"sinkhorn {name} B={B} N={N} K={K}: cluster {cl} x {threads} threads, max|err| {err:.3e}, "
                   f"kernel {ms * 1e3:.1f} us/call (events), device {fmt_us(dev_ms)}, plain {plain_ms * 1e3:.1f} "
                   f"us/call, bound {bound_ms * 1e3:.3f} us ({bound_by})")
-            if (B, N) in ((1, 1024), (1, 1536), (1, 512), (4, 1024)) and dtype == torch.float64:  # the main paths'
+            if (name, B, N) in MAIN_SINKHORN:
                 per_iter_us = None if dev_ms is None else 1e3 * dev_ms / n_iters
-                records[(B, N)] = dict(ms=ms, device_ms=dev_ms, per_iter_us=per_iter_us, cluster=cl, threads=threads,
-                                  plain_ms=plain_ms, max_abs_err=err, bound_ms=bound_ms, bound_by=bound_by)
+                records[(name, B, N)] = dict(shape=[B, N, K], ms=ms, device_ms=dev_ms, per_iter_us=per_iter_us,
+                                             cluster=cl, threads=threads, plain_ms=plain_ms, max_abs_err=err,
+                                             bound_ms=bound_ms, bound_by=bound_by)
     return records
 
 
@@ -395,11 +477,11 @@ def check_raster(s, H, W, log_clip, label):
 
 
 def phase_raster(device):
-    """Raster kernel vs plain at the render shapes; returns the record at
-    RenderParams() (240 x 320)."""
+    """Raster kernel vs plain at the render shapes; returns the records,
+    keyed by (H, W): RenderParams()'s 240 x 320 and the viewer's 360 x 480."""
     from gcslam_torch.outputs import raster
 
-    record = None
+    records = {}
     for case_i, (P, H, W) in enumerate(RASTER_CASES):
         s, params = raster_scene(P, H, W, device, seed=11 + case_i)
         label = f"P={P} {H}x{W}"
@@ -416,10 +498,9 @@ def phase_raster(device):
               f"plain {plain_ms * 1e3:.1f} us/call, {pairs} pairs with w > 0, bound {bound_ms * 1e3:.3f} us "
               f"({bound_by}); {box_pairs} pairs in the tiles' clip boxes, {100 * warp_share:.1f} % of their "
               f"(warp, splat) pairs with some w > 0")
-        if (H, W) == (240, 320):
-            record = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, max_abs_err=err, bound_ms=bound_ms,
-                          bound_by=bound_by)
-    return record
+        records[(H, W)] = dict(shape=[P, H, W], ms=ms, device_ms=dev_ms, plain_ms=plain_ms, max_abs_err=err,
+                               bound_ms=bound_ms, bound_by=bound_by)
+    return records
 
 
 @contextlib.contextmanager
@@ -499,8 +580,10 @@ def phase_determinism(device, run, cfg) -> None:
 
 
 def frontend_ms(device, cfg_syn) -> float:
-    """ms per frame of the camera frontend alone (extract + base frame) on
-    one rendered frame, by CUDA events."""
+    """ms per frame of the camera frontend alone on one rendered frame, on
+    the generator's default route: corners, robust depth and plane fit in
+    the C++ stage on the host, the lift and base-frame move on the card;
+    host clock around 20 calls, synchronized."""
     import torch
     from gcslam_torch import constants as C
     from gcslam_torch.frontend import camera as cam_mod
@@ -510,16 +593,22 @@ def frontend_ms(device, cfg_syn) -> float:
     pos, yaw, _, _, _ = traj(1.0)
     gray, depth, rgb, R_wc, origin = syn._render_rgbd(pos, yaw, cfg_syn)
     rng = np.random.default_rng(0)
-    lidar = torch.as_tensor(rng.normal(0, 3, (N_POINTS, 3)) + [0, 0, 6], device=device)
-    w = torch.ones(N_POINTS, dtype=torch.float64, device=device)
+    lidar = rng.normal(0, 3, (N_POINTS, 3)) + [0, 0, 6]
+    w = np.ones(N_POINTS)
     intr = cam_mod.PinholeIntrinsics(cfg_syn.cam_fx, cfg_syn.cam_fx, cfg_syn.cam_w / 2.0, cfg_syn.cam_h / 2.0)
-    t = [torch.as_tensor(x, device=device) for x in (gray, depth, rgb)]
 
     def one():
-        f = cam_mod.extract_camera_features(*t, intr, lidar, w, n_feat=C.N_FEAT)
+        f = cam_mod.extract_camera_features_native(gray, depth, rgb, intr, lidar, w, n_feat=C.N_FEAT, device=device)
         return cam_mod.features_to_base_frame(f, syn.T_BASE_CAM)
 
-    return time_call(one, n=20)
+    for _ in range(3):
+        one()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        one()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / 20
 
 
 def phase_camera(device):
@@ -532,9 +621,9 @@ def phase_camera(device):
     gen_s = time.perf_counter() - t0
     fe_ms = frontend_ms(device, cfg_syn)
     n_cam = [int(b.cam_valid.sum()) for b in run.batches]
-    print(f"generated {N_SCANS} camera scans in {gen_s:.1f} s (raycasts on the host, frontend on the card: "
-          f"{fe_ms:.2f} ms/frame); valid camera features per scan {min(n_cam)}-{max(n_cam)}")
-    if min(n_cam) < 100:
+    print(f"generated {N_SCANS} camera scans in {gen_s:.1f} s (raycasts and the C++ corner stage on the host, the "
+          f"lift on the card: {fe_ms:.2f} ms/frame); valid camera features per scan {min(n_cam)}-{max(n_cam)}")
+    if min(n_cam) < MIN_CAM_FEATURES:
         fail(f"camera frontend found only {min(n_cam)} features in a frame")
 
     # record the Sinkhorn problem shapes of the camera path
@@ -614,7 +703,7 @@ def phase_viewer(state, out, run):
         if rgb.shape != (360, 480, 3) or not (np.isfinite(rgb).all() and np.isfinite(depth).all()):
             fail(f"viewer ({sub}): bad output {rgb.shape}")
         print(f"viewer ({sub}): {n} splats exported, covered {100 * float((depth > 0).mean()):.1f} %")
-    if raster.COUNTER.launches != before + 2:
+    if raster.COUNTER.launches != before + VIEWER_RENDERS:
         fail("viewer: the renders did not go through the raster kernel")
 
 
@@ -944,6 +1033,172 @@ def phase_bag(device, sk_bag):
     return record, launches
 
 
+def phase_canonical(device, sk_rec, rs_rec):
+    """The canonical camera-on bag through `eval.run` with the live view;
+    returns its record, its Sinkhorn launches and the viewer's raster
+    launches."""
+    import dataclasses
+
+    import torch
+    from gcslam_torch.eval import run as eval_run
+    from gcslam_torch.frontend import rosbag
+    from gcslam_torch.models.config import config_from_file
+    from gcslam_torch.ops import sinkhorn
+    from gcslam_torch.outputs import raster
+    from gcslam_torch.tools import make_synth_bag, view_splats
+
+    d = os.path.join(OUT_DIR, "canonical")
+    os.makedirs(d, exist_ok=True)
+    bag, gt, out_dir, live = (os.path.join(d, x) for x in ("kimera_synth.db3", "kimera_synth_gt.tum", "run", "live"))
+    if os.path.exists(bag):
+        os.remove(bag)
+    t0 = time.perf_counter()
+    summary = make_synth_bag.main(["--out", bag, "--gt", gt, "--config", BAG_CONFIG] + CANON_SYNTH)
+    write_s = time.perf_counter() - t0
+    n = summary["n_scans"]
+    print(f"canonical bag written in {write_s:.1f} s: {summary['n_messages']} messages, {summary['n_cam_frames']} "
+          f"RGB-D frames at 640 x 480, {os.path.getsize(bag) / 1e6:.1f} MB")
+
+    cfg = config_from_file(BAG_CONFIG)
+    expected = (cfg.n_surfel + cfg.n_feat, cfg.k_assoc)
+    args = ["--bag", bag, "--config", BAG_CONFIG, "--gt", gt, "--chunk", "10", "--loop", "--live-view", live,
+            "--out", out_dir]
+    with sinkhorn_shapes() as shapes:
+        sinkhorn.COUNTER.reset()
+        t0 = time.perf_counter()
+        metrics = eval_run.main(args)
+        run_s = time.perf_counter() - t0
+        launches = sinkhorn.COUNTER.launches
+    check_artifacts(out_dir, n)
+    audit = json.load(open(os.path.join(out_dir, "audit.json")))
+    lines = [json.loads(line) for line in open(os.path.join(live, "live.jsonl"))]
+    logged = [e["scan"] for e in lines if "pose" in e]
+    ate, rpe = metrics["ate"], metrics["rpe"]["1m"]
+    ate_m, ate_deg = ate["translation"]["rmse"], ate["rotation_deg"]["rmse"]
+    jax_m = [m for m, _ in JAX_CANON_ATE.values()]
+    rpe_m, rpe_deg = (rpe["translation"]["rmse"], rpe["rotation_deg"]["rmse"]) if rpe["translation"] else (None, None)
+    print(f"eval.run on the canonical bag (camera on, --chunk 10 --loop --live-view): {run_s:.1f} s in all "
+          f"(load_bag {metrics['load_s']:.2f} s, replay {metrics['wall_s']:.2f} s = "
+          f"{1e3 * metrics['wall_s'] / n:.2f} ms/scan); ATE {ate_m:.4f} m / {ate_deg:.4f} deg, RPE 1 m "
+          f"{rpe_m} m / {rpe_deg} deg ({rpe['n_pairs']} pairs); audit "
+          f"{'all pass' if audit['all_pass'] else 'FAILED'}; live.jsonl {len(logged)} scan lines; sinkhorn "
+          f"launches {launches} on {sorted(shapes)}")
+    print(f"JAX package on the same bag: {min(jax_m):.4f}-{max(jax_m):.4f} m over {len(jax_m)} runs (the config's "
+          f"extrinsic, one-ulp nudges, the port's state after scan 5); outside that range by "
+          f"{max(0.0, min(jax_m) - ate_m, ate_m - max(jax_m)):.4f} m (bound {CANON_ATE_BOUND_M} m)")
+    if not audit["all_pass"]:
+        fail(f"canonical bag: audit failed: {[k for k, v in audit.items() if isinstance(v, dict) and not v['pass']]}")
+    if logged != list(range(n)):
+        fail(f"canonical bag: live.jsonl logs scans {logged[:5]}..., not one line per scan")
+    if launches != cfg.map_icp_iters * n or shapes != {expected}:
+        fail(f"canonical bag: {launches} sinkhorn launches on {sorted(shapes)}, expected {cfg.map_icp_iters * n} "
+             f"on {expected}")
+    if ate_m > REHEARSAL_GATE[0] or ate_deg > REHEARSAL_GATE[1]:
+        fail(f"canonical bag: ATE {ate_m:.4f} m / {ate_deg:.4f} deg is above the rehearsal gate {REHEARSAL_GATE}")
+    if not min(jax_m) - CANON_ATE_BOUND_M <= ate_m <= max(jax_m) + CANON_ATE_BOUND_M:
+        fail(f"canonical bag: ATE {ate_m:.4f} m is more than {CANON_ATE_BOUND_M} m outside the JAX package's "
+             f"{min(jax_m):.4f}-{max(jax_m):.4f} m")
+
+    # the frontend alone, camera on and off: the camera's share of the load
+    bag_cfg = rosbag.bag_config_from_file(BAG_CONFIG)
+    load_ms = {}
+    for cam in (True, False):
+        t0 = time.perf_counter()
+        batches, _, _ = rosbag.load_bag(bag, config=dataclasses.replace(bag_cfg, with_camera=cam), device=device)
+        torch.cuda.synchronize()
+        load_ms[cam] = 1e3 * (time.perf_counter() - t0) / len(batches)
+    cam_share = (load_ms[True] - load_ms[False]) / load_ms[True]
+    # one render of the result through the raster kernel
+    before = raster.COUNTER.launches
+    paths = view_splats.main([os.path.join(out_dir, "splat_export.npz"), "--traj",
+                              os.path.join(out_dir, "trajectory.tum"), "--out", os.path.join(d, "views")])
+    viewer_launches = raster.COUNTER.launches - before
+    depth = np.load(paths["render_depth.npy"])
+    if viewer_launches != 1 or not np.isfinite(depth).all():
+        fail(f"canonical bag: the viewer made {viewer_launches} raster launches")
+    print(f"canonical frontend: decode + load_bag {load_ms[True]:.2f} ms/scan with the camera, {load_ms[False]:.2f} "
+          f"without (camera {100 * cam_share:.1f} %); sinkhorn at {expected}: device {fmt_us(sk_rec['device_ms'])}"
+          f"/call; viewer render covered {100 * float((depth > 0).mean()):.1f} % (raster at 360 x 480: device "
+          f"{fmt_us(rs_rec['device_ms'])}/call)")
+    record = {"n_scans": n, "n_returns": 16384, "camera": True, "bag_write_s": write_s, "eval_run_s": run_s,
+              "load_s": metrics["load_s"], "replay_ms_per_scan": 1e3 * metrics["wall_s"] / n,
+              "load_ms_per_scan_camera": load_ms[True], "load_ms_per_scan_no_camera": load_ms[False],
+              "camera_share_of_load": cam_share, "ate_m": ate_m, "ate_deg": ate_deg,
+              "rpe_1m_m": rpe_m, "rpe_1m_deg": rpe_deg, "jax_ate": JAX_CANON_ATE, "audit_checks": len(audit) - 1, "live_scan_lines": len(logged),
+              "sinkhorn_launches": launches, "sinkhorn_shape": list(expected), "viewer_raster_launches": viewer_launches}
+    return record, launches, viewer_launches
+
+
+def f32_flagship_child() -> None:
+    """Phase 13's child (GCSLAM_BELIEF_DTYPE=float32 binds at import): the
+    flagship replay after a warm-up; prints one JSON line."""
+    import torch
+    from gcslam_torch.eval.ate_rpe import compute_ate
+    from gcslam_torch.frontend.synthetic import SyntheticConfig, generate
+    from gcslam_torch.models import runner
+    from gcslam_torch.models.config import PipelineConfig
+    from gcslam_torch.ops import association, sinkhorn
+    from gcslam_torch.tools.precision_compare import certificate_fields
+    from gcslam_torch.utils.dtypes import BELIEF_DTYPE
+
+    calls = set()
+    kernel_fn = association.sinkhorn_unbalanced
+
+    def recording(C, *args, **kwargs):
+        calls.add((str(C.dtype).replace("torch.", ""), tuple(C.shape)))
+        return kernel_fn(C, *args, **kwargs)
+
+    association.sinkhorn_unbalanced = recording
+    run = generate(SyntheticConfig(n_scans=N_SCANS, n_points=N_POINTS))
+    cfg = PipelineConfig()
+    runner.run_bag(run.batches[:N_WARMUP], cfg)
+    torch.cuda.synchronize()
+    calls.clear()
+    sinkhorn.COUNTER.reset()
+    t0 = time.perf_counter()
+    _, out = runner.run_bag(run.batches, cfg)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / N_SCANS
+    poses = out.pose.double().cpu().numpy()
+    ate = compute_ate(poses, run.gt_poses, align="initial")
+    print(json.dumps({"belief_dtype": str(BELIEF_DTYPE), "pose_dtype": str(out.pose.dtype), "ms_per_scan": ms,
+                      "sinkhorn_launches": sinkhorn.COUNTER.launches, "sinkhorn_calls": sorted(calls),
+                      "finite": bool(np.isfinite(poses).all()), "ate_m": ate["translation"]["rmse"],
+                      "ate_deg": ate["rotation_deg"]["rmse"], **certificate_fields(out.tape)}))
+
+
+def phase_f32(out_flag, ate_flag, ms_flag):
+    """The f32-belief flagship in a child process; returns its record and
+    its Sinkhorn launches (all of the f32 instance)."""
+    from gcslam_torch.tools.precision_compare import certificate_fields
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, **F32_ENV, PYTHONPATH=os.pathsep.join(filter(None, [root, os.environ.get("PYTHONPATH")])))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", "import chip_smoke; chip_smoke.f32_flagship_child()"], cwd=root,
+                          env=env, capture_output=True, text=True, timeout=900)
+    child_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"f32 flagship: the child exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+    r = json.loads(proc.stdout.strip().splitlines()[-1])
+    f64 = certificate_fields(out_flag.tape)
+    print(f"f32-belief flagship ({N_SCANS} scans, child process {child_s:.1f} s): {r['ms_per_scan']:.2f} ms/scan "
+          f"(f64, phase 3: {ms_flag:.2f}); ATE {r['ate_m']:.4f} m / {r['ate_deg']:.4f} deg (f64: "
+          f"{ate_flag['translation']['rmse']:.4f} / {ate_flag['rotation_deg']['rmse']:.4f}); sinkhorn launches "
+          f"{r['sinkhorn_launches']} on {r['sinkhorn_calls']}")
+    for key in f64:
+        print(f"  {key}: f32 {r[key]:.6g}, f64 {f64[key]:.6g}")
+    want = [["float32", [1024, 8]]]
+    if r["belief_dtype"] != "torch.float32" or r["pose_dtype"] != "torch.float32" or not r["finite"]:
+        fail(f"f32 flagship: belief {r['belief_dtype']}, poses {r['pose_dtype']}, finite {r['finite']}")
+    if r["sinkhorn_launches"] != 2 * N_SCANS or r["sinkhorn_calls"] != want:
+        fail(f"f32 flagship: {r['sinkhorn_launches']} launches on {r['sinkhorn_calls']}, expected {2 * N_SCANS} "
+             f"on {want}")
+    if r["ate_m"] > GATE_ATE_TRANS_RMSE_M or r["ate_deg"] > GATE_ATE_ROT_RMSE_DEG:
+        fail(f"f32 flagship ATE gate: {r['ate_m']:.4f} m / {r['ate_deg']:.4f} deg")
+    return {**r, "child_s": child_s, "f64_certificates": f64}, r["sinkhorn_launches"]
+
+
 def main() -> None:
     import torch
 
@@ -988,35 +1243,58 @@ def main() -> None:
     lap("phase 10")
 
     # 11. a Kimera-schema bag through eval.run
-    bag, launches_bag = phase_bag(device, sk[(1, 512)])
+    bag, launches_bag = phase_bag(device, sk[("float64", 1, 512)])
     lap("phase 11")
 
-    launches_sinkhorn = launches_flag + launches_cam + launches_hyp + launches_live + launches_opt + launches_bag
-    sk_main = sk[(4, 1024)]  # the per-hypothesis path's shape
-    kernels = [
-        dict(name="sinkhorn_unbalanced", route="cuda", source="gcslam_torch/csrc/sinkhorn.cu",
-             replaces="gcslam_tpu/ops/sinkhorn_pallas.py:59", launches=launches_sinkhorn,
-             max_abs_err=sk_main["max_abs_err"], ms=sk_main["ms"], device_ms=sk_main["device_ms"],
-             plain_ms=sk_main["plain_ms"], bound_ms=sk_main["bound_ms"], bound_by=sk_main["bound_by"],
-             library_ms=None),
-        dict(name="render_splats_raster", route="cuda", source="gcslam_torch/csrc/raster.cu",
-             replaces="gcslam_tpu/outputs/rendering_pallas.py:128", launches=launches_raster,
-             max_abs_err=max(rs["max_abs_err"], err_render), ms=rs["ms"], device_ms=rs["device_ms"],
-             plain_ms=rs["plain_ms"], bound_ms=rs["bound_ms"], bound_by=rs["bound_by"], library_ms=None),
-    ]
+    # 12. the rehearsal's canonical bag, camera on, through the full variant's command
+    canon, launches_canon, launches_raster_canon = phase_canonical(device, sk[("float64", 1, 1024)], rs[(360, 480)])
+    lap("phase 12")
+
+    # 13. the f32-belief flagship
+    f32, launches_f32 = phase_f32(out_flag, ate_flag, ms_flag)
+    lap("phase 13")
+
+    sinkhorn_launches = {
+        ("float64", 1, 1024): launches_flag + launches_live + launches_opt + launches_canon,
+        ("float64", 4, 1024): launches_hyp,
+        ("float64", 1, 1536): launches_cam,
+        ("float64", 1, 512): launches_bag,
+        ("float32", 1, 1024): launches_f32,
+    }
+    raster_launches = {(240, 320): launches_raster, (360, 480): VIEWER_RENDERS + launches_raster_canon}
+    kernels = []
+    for key, rec in sk.items():
+        kernels.append(dict(
+            name="sinkhorn_unbalanced", instance=f"{key[0]} {tuple(rec['shape'])}", paths=MAIN_SINKHORN[key],
+            route="cuda", source="gcslam_torch/csrc/sinkhorn.cu", replaces="gcslam_tpu/ops/sinkhorn_pallas.py:59",
+            launches=sinkhorn_launches[key], max_abs_err=rec["max_abs_err"], ms=rec["ms"], device_ms=rec["device_ms"],
+            plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"], bound_by=rec["bound_by"], library_ms=None))
+    for key, rec in rs.items():
+        err = max(rec["max_abs_err"], err_render) if key == (240, 320) else rec["max_abs_err"]
+        kernels.append(dict(
+            name="render_splats_raster", instance=f"float32 {tuple(rec['shape'])}",
+            paths="map render" if key == (240, 320) else "viewer", route="cuda",
+            source="gcslam_torch/csrc/raster.cu", replaces="gcslam_tpu/outputs/rendering_pallas.py:128",
+            launches=raster_launches[key], max_abs_err=err, ms=rec["ms"], device_ms=rec["device_ms"],
+            plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"], bound_by=rec["bound_by"], library_ms=None))
+    missing = [f"{k['name']} {k['instance']}" for k in kernels if k["launches"] < 1]
+    if missing:
+        fail(f"kernel instances the main paths never launched: {missing}")
     print(json.dumps({"paths": {
         "flagship": {"ms_per_scan": ms_flag, "n_scans": N_SCANS, "n_points": N_POINTS,
                      "ate_m": ate_flag["translation"]["rmse"], "ate_deg": ate_flag["rotation_deg"]["rmse"],
-                     "sinkhorn_launches": launches_flag, "sinkhorn_1024": sk[(1, 1024)]},
+                     "sinkhorn_launches": launches_flag},
         "camera": {"ms_per_scan": ms_cam, "frontend_ms_per_frame": fe_ms, "n_scans": N_SCANS,
                    "ate_m": ate_cam["translation"]["rmse"], "ate_deg": ate_cam["rotation_deg"]["rmse"],
-                   "sinkhorn_launches": launches_cam, "sinkhorn_1536": sk[(1, 1536)]},
+                   "sinkhorn_launches": launches_cam},
         "render": [{"vantage": n, "covered": c, "ms": ms} for n, c, ms in renders],
-        "per_hypothesis": {**per_hyp, "sinkhorn_4x1024": sk_main},
+        "per_hypothesis": per_hyp,
         "per_hypothesis_shared_extraction": shared_ext,
         **live,
         "options": options,
         "bag": bag,
+        "canonical": canon,
+        "f32_flagship": f32,
         "seconds": seconds,
     }}))
     print(json.dumps({"kernels": kernels}))

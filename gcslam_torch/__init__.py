@@ -10,7 +10,8 @@ torch and numpy only; hand-written CUDA sources live in `csrc/` and are
 built on first use (see `ops/cuda_build.py`).
 
 Importing this package sets the numeric policy (`utils.dtypes`): TF32 off
-for matmuls and cuDNN.
+for matmuls and cuDNN, and the belief dtype bound from GCSLAM_BELIEF_DTYPE
+(float64 unless it says float32).
 """
 
 from gcslam_torch.utils import dtypes as _dtypes  # noqa: F401  (side effect: TF32 off)

@@ -16,11 +16,12 @@ D_DESKEW = 22
 # ---------------------------------------------------------------------------
 # Fixed-cost budgets (compile-time constants; reference constants.py:62-67)
 #
-# GCSLAM_K_HYP / GCSLAM_K_SINKHORN env overrides are the SANCTIONED rebuild
-# path for measurement tools only (tools/attribute_step spawns subprocesses
-# with them, exactly as tools/precision_compare does for the dtype) — the
-# production fail-fast still binds config values to whatever this module
-# compiled with, so a mismatched config cannot start (VERDICT r4 #8).
+# GCSLAM_K_HYP / GCSLAM_K_SINKHORN env overrides are the JAX package's
+# rebuild path for its measurement tools (its tools/attribute_step spawns
+# subprocesses with them, as tools/precision_compare does for the dtype);
+# the port has no attribute_step yet and reads them as that package does.
+# The production fail-fast still binds config values to whatever this
+# module was imported with, so a mismatched config cannot start.
 # ---------------------------------------------------------------------------
 import os as _os
 

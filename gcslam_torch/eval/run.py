@@ -20,8 +20,14 @@ Usage:
   python -m gcslam_torch.eval.run --scans 160 --out <dir>   (synthetic rig)
 
 The run is on the CUDA card unless --cpu is given; without a card it
-raises. --live-view and --precision f32 need modules the port does not have
-yet (outputs/live_view, the f32-belief mode) and are refused.
+raises. --precision f32 runs the belief algebra in float32 (the JAX
+package's production mode): the process re-executes itself with
+GCSLAM_BELIEF_DTYPE set, since the dtype binds at import. --live-view DIR
+streams the run to outputs/live_view (a rerun recording with the SDK, else
+DIR/live.jsonl and npz snapshots; 'spawn' pops a rerun viewer); it runs
+with every runner mode (the JAX package's drops it under --chunk).
+GCSLAM_NO_NATIVE=1 decodes the bag with the Python codec and the pure
+camera route, as the JAX package's switch does.
 """
 
 from __future__ import annotations
@@ -53,7 +59,8 @@ def _parser() -> argparse.ArgumentParser:
                    help="chunked streaming: windows of W scans with loop-closure injection at "
                         "chunk boundaries (combines with --loop)")
     p.add_argument("--live-view", default=None, metavar="DIR|spawn",
-                   help="live visualization during a streaming run (not ported yet)")
+                   help="live visualization: with the rerun SDK 'spawn' pops a viewer; otherwise DIR "
+                        "receives a tail-able live.jsonl + point/map snapshots")
     p.add_argument("--map-stream", type=int, default=0, metavar="N",
                    help="export incremental map snapshots every N scans (streaming mode)")
     p.add_argument("--no-camera", dest="camera", action="store_false", default=None,
@@ -70,7 +77,8 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--config", default=None,
                    help="YAML/JSON PipelineConfig file (configs/gc_default.yaml)")
     p.add_argument("--precision", default=None, choices=["f32", "f64"],
-                   help="belief-algebra dtype; the port runs f64 (f32 is not ported yet)")
+                   help="belief-algebra dtype (default: GCSLAM_BELIEF_DTYPE, else f64); the process "
+                        "re-executes itself with that variable set")
     return p
 
 
@@ -106,10 +114,15 @@ def _bag_config(args, cfg):
 
 def main(argv=None) -> dict:
     args = _parser().parse_args(argv)
-    if args.precision == "f32":
-        raise NotImplementedError("--precision f32: the f32-belief mode is not ported yet (the port runs f64)")
-    if args.live_view:
-        raise NotImplementedError("--live-view: outputs/live_view is not ported yet")
+    if args.precision is not None:
+        from gcslam_torch.utils.dtypes import BELIEF_DTYPE
+
+        want = "float32" if args.precision == "f32" else "float64"
+        if str(BELIEF_DTYPE) != f"torch.{want}":
+            # BELIEF_DTYPE bound at the package's import: run anew with it set
+            os.execve(sys.executable, [sys.executable, "-m", "gcslam_torch.eval.run"]
+                      + list(sys.argv[1:] if argv is None else argv),
+                      dict(os.environ, GCSLAM_BELIEF_DTYPE=want))
 
     import numpy as np
 
@@ -171,15 +184,22 @@ def main(argv=None) -> dict:
         from gcslam_torch.frontend.loop import LoopDetector
 
         detector = LoopDetector()
+    viewer = None
+    if args.live_view:
+        from gcslam_torch.outputs.live_view import LiveViewer
+
+        spawn = args.live_view == "spawn"
+        viewer = LiveViewer(os.path.join(out_dir, "live") if spawn else args.live_view, spawn=spawn)
     t0 = time.perf_counter()
     if args.chunk > 0:
-        state, out = runner.run_chunked(batches, cfg, chunk=args.chunk, loop_detector=detector, device=device)
-    elif args.loop or args.map_stream > 0:
+        state, out = runner.run_chunked(batches, cfg, chunk=args.chunk, loop_detector=detector,
+                                        live_viewer=viewer, device=device)
+    elif args.loop or args.map_stream > 0 or viewer is not None:
         state, out = runner.run_stream(
             batches, cfg, loop_detector=detector,
             map_stream_dir=os.path.join(out_dir, "map_stream") if args.map_stream else None,
             map_stream_every=max(args.map_stream, 1),
-            status_path=os.path.join(out_dir, "status.jsonl"), device=device)
+            status_path=os.path.join(out_dir, "status.jsonl"), live_viewer=viewer, device=device)
     else:
         state, out = runner.run_bag(batches, cfg, device=device)
     poses = out.pose.cpu().numpy()

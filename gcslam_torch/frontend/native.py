@@ -10,8 +10,10 @@ the flags and the CPU target g++ resolves for `-march=native`, so a changed
 source or another CPU builds anew; the build writes a temporary file and
 renames it into place, so concurrent processes never load a half-written
 library. A failed build raises with g++'s log. Nothing here falls back to
-the Python codec: callers that want it ask for it (rosbag.load_bag's
-`native=False`).
+the Python codec: callers that want it ask for it (`native=False` to
+rosbag.load_bag and synthetic.generate), or set GCSLAM_NO_NATIVE=1, the JAX
+package's switch, which `resolve_native` reads for callers that pass
+`native=None`.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import hashlib
 import os
 import re
 import subprocess
+import sys
 import tempfile
 from pathlib import Path
 from typing import Iterator
@@ -34,7 +37,26 @@ BUILD = CSRC / "build"
 CXXFLAGS = ["-O3", "-march=native", "-std=c++17", "-fPIC", "-Wall", "-pthread"]
 LDLIBS = ["-ldl", "-pthread"]
 
+NO_NATIVE_ENV = "GCSLAM_NO_NATIVE"
+
 _lib = None
+
+
+def native_by_default() -> bool:
+    """The route of a caller that names none: the native library unless
+    GCSLAM_NO_NATIVE=1."""
+    return os.environ.get(NO_NATIVE_ENV) != "1"
+
+
+def resolve_native(native, what: str) -> bool:
+    """The route `what` takes: `native` when the caller gives True or False,
+    else the switch. A route picked by GCSLAM_NO_NATIVE=1 is said on stderr."""
+    if native is not None:
+        return bool(native)
+    if native_by_default():
+        return True
+    print(f"gcslam_torch: {NO_NATIVE_ENV}=1: {what} takes the Python route", file=sys.stderr)
+    return False
 
 
 def _cxx() -> str:

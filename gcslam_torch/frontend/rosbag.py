@@ -12,8 +12,8 @@ backend_node.py:939-2035) with a deterministic offline pass:
     call each; the camera's corner, depth and plane stage runs there too.
     JPEG frames decode with PIL. The pure-Python CDR codec
     (frontend/cdr.py) with the pure camera route runs only when the caller
-    asks for it (`load_bag(..., native=False)`, the JAX package's
-    GCSLAM_NO_NATIVE=1);
+    asks for it (`load_bag(..., native=False)`) or sets GCSLAM_NO_NATIVE=1,
+    the JAX package's switch;
   - scan clock: each LiDAR message makes exactly one ScanBatch, faster
     streams are sliced into windows at scan boundaries;
   - deterministic point-budget resample to the batch's point budget (the
@@ -365,16 +365,18 @@ def load_bag(
     n_points: int = C.N_POINTS_CAP,
     config: BagConfig | None = None,
     device=None,
-    native: bool = True,
+    native: Optional[bool] = None,
 ) -> Tuple[List[ScanBatch], Optional[np.ndarray], Optional[np.ndarray]]:
     """-> (batches on `device` (default: the CUDA card), gt_poses=None,
     gt_times=None). Ground truth comes from a separate TUM file in real
     evaluations. `native=False` decodes with the pure-Python CDR codec and
-    the pure camera route (the JAX package's GCSLAM_NO_NATIVE=1); nothing
-    switches to it by itself."""
+    the pure camera route; `native=None` takes the native route unless
+    GCSLAM_NO_NATIVE=1 (the JAX package's switch); nothing switches to the
+    Python route by itself."""
     from gcslam_torch.frontend import native as native_mod
 
     device = resolve_device(device)
+    native = native_mod.resolve_native(native, "the bag decoder")
     cfg = config or BagConfig(n_points=n_points)
 
     # On a .db3 the native streamer reads and parses the LiDAR topic (the

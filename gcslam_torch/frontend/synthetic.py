@@ -219,9 +219,12 @@ def _render_rgbd(pos, yaw, cfg):
     return gray, depth, np.clip(rgb, 0, 1), R_wc, origin
 
 
-def _camera_slice(cfg, pos, yaw, p_body, weights, device) -> dict:
-    """The batch's camera fields for one scan: render, extract features on
-    `device` with the LiDAR points as depth evidence, move to the base frame."""
+def _camera_slice(cfg, pos, yaw, p_body, weights, device, native: bool) -> dict:
+    """The batch's camera fields for one scan: render, extract features with
+    the LiDAR points as depth evidence, move to the base frame. `native`:
+    corners, robust depth and plane fit in the C++ stage on the host, the
+    lift on `device` (the JAX generator's route when its library is built);
+    else every stage in torch on `device`."""
     gray, depth_img, rgb_img, R_wc, cam_origin = _render_rgbd(pos, yaw, cfg)
     intr = cam_mod.PinholeIntrinsics(fx=cfg.cam_fx, fy=cfg.cam_fx, cx=cfg.cam_w / 2.0, cy=cfg.cam_h / 2.0)
     # LiDAR points (body) -> camera frame for the Route A/B depth fusion
@@ -231,8 +234,12 @@ def _camera_slice(cfg, pos, yaw, p_body, weights, device) -> dict:
     def t(x):
         return torch.as_tensor(x, device=device)
 
-    feats = cam_mod.extract_camera_features(
-        t(gray), t(depth_img), t(rgb_img), intr, t(lidar_cam), t(weights), n_feat=C.N_FEAT)
+    if native:
+        feats = cam_mod.extract_camera_features_native(
+            gray, depth_img, rgb_img, intr, lidar_cam, weights, n_feat=C.N_FEAT, device=device)
+    else:
+        feats = cam_mod.extract_camera_features(
+            t(gray), t(depth_img), t(rgb_img), intr, t(lidar_cam), t(weights), n_feat=C.N_FEAT)
     feats = cam_mod.features_to_base_frame(feats, T_BASE_CAM)
     return dict(cam_Lambdas=feats.Lambdas, cam_thetas=feats.thetas, cam_etas=feats.etas,
                 cam_weights=feats.weights, cam_colors=feats.colors, cam_valid=feats.valid)
@@ -304,10 +311,17 @@ def build_trajectory(cfg: SyntheticConfig):
     return traj
 
 
-def generate(cfg: SyntheticConfig = SyntheticConfig(), device=None) -> SyntheticRun:
+def generate(cfg: SyntheticConfig = SyntheticConfig(), device=None, native=None) -> SyntheticRun:
     """The synthetic replay: one ScanBatch per scan on `device` (default:
-    the CUDA card), ground-truth poses and stamps."""
+    the CUDA card), ground-truth poses and stamps. With the camera on,
+    `native` picks the visual frontend's route: True the C++ corner stage
+    (frontend/native.py), False the pure torch route, None the native route
+    unless GCSLAM_NO_NATIVE=1."""
     device = resolve_device(device)
+    if cfg.with_camera:
+        from gcslam_torch.frontend.native import resolve_native
+
+        native = resolve_native(native, "the synthetic camera frontend")
     rng = np.random.default_rng(cfg.seed)
     scan_dt = 1.0 / cfg.scan_rate_hz
     imu_dt = 1.0 / cfg.imu_rate_hz
@@ -461,7 +475,7 @@ def generate(cfg: SyntheticConfig = SyntheticConfig(), device=None) -> Synthetic
         odom_twist_cov = np.diag([cfg.odom_vel_noise_std**2] * 3 + [1e-6] * 3)
 
         if cfg.with_camera:
-            cam = _camera_slice(cfg, pos, yaw, p_body, weights, device)
+            cam = _camera_slice(cfg, pos, yaw, p_body, weights, device, native)
         else:
             cam = dict(
                 cam_Lambdas=np.zeros((C.N_FEAT, 3, 3)),

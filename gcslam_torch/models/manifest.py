@@ -1,8 +1,8 @@
 """RuntimeManifest (counterpart of the JAX package's models/manifest.py):
 every behavioural setting, emitted as JSON at startup ("no silent
 defaults", reference backend/pipeline.py:1629-1793): chart, dtypes,
-budgets, epsilons, backends, every config field, and the device the run
-is on. The JAX package's XLA cost analysis and compile-cache counts have no
+budgets, epsilons, backends, the frontend's native or Python route, every
+config field, and the device the run is on. The JAX package's XLA cost analysis and compile-cache counts have no
 counterpart here and are left out."""
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ from typing import Any, Dict
 import torch
 
 from gcslam_torch import constants as C
+from gcslam_torch.frontend.native import native_by_default
 from gcslam_torch.models.config import PipelineConfig
 from gcslam_torch.utils.dtypes import BELIEF_DTYPE, POINT_DTYPE, TIME_DTYPE
 
@@ -80,6 +81,8 @@ def runtime_manifest(cfg: PipelineConfig) -> Dict[str, Any]:
         "iw_rho_process": [C.IW_RHO_TRANS, C.IW_RHO_ROT, C.IW_RHO_VEL, C.IW_RHO_BG,
                            C.IW_RHO_BA, C.IW_RHO_DT, C.IW_RHO_EX],
         "iw_rho_measurement": [C.IW_RHO_MEAS_GYRO, C.IW_RHO_MEAS_ACCEL, C.IW_RHO_MEAS_LIDAR],
+        # the frontend's route when no caller names one (GCSLAM_NO_NATIVE=1: Python)
+        "frontend_route": "native" if native_by_default() else "python",
     }
     # every config field is behavioural -> all of them go in the manifest
     m.update({f"config.{k}": v for k, v in dataclasses.asdict(cfg).items()})

@@ -74,6 +74,15 @@ def _host(x: torch.Tensor) -> np.ndarray:
     return x.detach().cpu().numpy()
 
 
+def _log_live(viewer, i: int, batch: ScanBatch, out: StepOutput, state: StepState, config: PipelineConfig) -> None:
+    """Scan i to the live viewer: host copies of its pose, stamp and
+    points, and every map_every scans a map snapshot."""
+    viewer.log_scan(i, float(out.stamp), _host(out.pose), points=_host(batch.points),
+                    weights=_host(batch.point_weights), map_valid_total=float(out.tape.map_valid_total))
+    if config.with_map:
+        viewer.maybe_log_map(i, state.atlas)
+
+
 def run_bag(
     batches: List[ScanBatch],
     config: PipelineConfig,
@@ -164,6 +173,7 @@ def run_stream(
     map_stream_every: int = 20,
     status_path: Optional[str] = None,
     status_every: int = 50,
+    live_viewer=None,
     device=None,
 ) -> Tuple[StepState, StepOutput]:
     """The online loop: one scan_step per scan, with host work between steps.
@@ -182,7 +192,12 @@ def run_stream(
     `status_path` enables the periodic status stream: every `status_every`
     scans (and at the last) a JSON line with the scan counters, pose, map
     size, per-scan trigger count, evidence ESS, non-finite rejection, loop
-    weight, DeadEndMonitor flags and wall rate."""
+    weight, DeadEndMonitor flags and wall rate.
+
+    `live_viewer` (outputs.live_view.LiveViewer) enables live
+    visualization: each scan's pose, its points every `points_every` scans
+    and a map snapshot every `map_every`, from host copies; it is closed at
+    the end."""
     from gcslam_torch.outputs.splat_export import save_splat_export
 
     state, device = _start(config, state, device)
@@ -214,6 +229,8 @@ def run_stream(
                                                            config.eps_lift)
                         pose_cov = _host(Sig)[C.IDX_POSE, C.IDX_POSE]
                     loop_detector.store(i, pose_prev, _host(batch.points), _host(batch.point_weights), pose_cov)
+                if live_viewer is not None:
+                    _log_live(live_viewer, i, batch, out, state, config)
                 last = i == n - 1
                 if stream_idx_f is not None and (i % map_stream_every == 0 or last):
                     snap = f"map_{i:06d}.npz"
@@ -245,7 +262,7 @@ def run_stream(
                     }) + "\n")
                     status_f.flush()
     finally:
-        for f in (stream_idx_f, status_f):
+        for f in (stream_idx_f, status_f, live_viewer):
             if f is not None:
                 f.close()
     return state, stack_outputs(outs)
@@ -257,6 +274,7 @@ def run_chunked(
     chunk: int = 10,
     state: Optional[StepState] = None,
     loop_detector=None,
+    live_viewer=None,
     device=None,
 ) -> Tuple[StepState, StepOutput]:
     """Windows of `chunk` scans with loop closure at the window boundaries
@@ -270,33 +288,45 @@ def run_chunked(
     len % chunk remaining scans run scan by scan without loop work, as in
     the reference runner — a factor probed for the first of them is
     dropped. `batches` may be a list or a ScanBatch stacked along a leading
-    time axis."""
+    time axis. `live_viewer` logs every scan as run_stream's does (the JAX
+    package's run_chunked takes none, and its eval.run drops --live-view
+    under --chunk); it is closed at the end."""
     state, device = _start(config, state, device)
     n = _n_scans(batches)
     n_full = (n // chunk) * chunk
     outs = []
     pending = None
-    with torch.no_grad():
-        for c in range(0, n_full, chunk):
-            for i in range(c, c + chunk):
+    try:
+        with torch.no_grad():
+            for c in range(0, n_full, chunk):
+                for i in range(c, c + chunk):
+                    batch = _scan_at(batches, i).to(device)
+                    if i == c and pending is not None and pending[2] > 0:
+                        batch = _with_loop(batch, *pending)
+                    state, out = scan_step(state, batch, config)
+                    outs.append(out)
+                    if live_viewer is not None:
+                        _log_live(live_viewer, i, batch, out, state, config)
+                pending = None
+                if loop_detector is not None:
+                    poses = _host(torch.stack([o.pose for o in outs[c:c + chunk]]))
+                    for j in range(chunk):
+                        i = c + j
+                        if i % loop_detector.cfg.keyframe_every:
+                            continue  # store() drops non-keyframes
+                        b = _scan_at(batches, i)
+                        loop_detector.store(i, poses[j], _host(b.points), _host(b.point_weights), None)
+                    if c + chunk < n:
+                        nb = _scan_at(batches, c + chunk)
+                        pending = loop_detector.detect(c + chunk, poses[-1], _host(nb.points),
+                                                       _host(nb.point_weights))
+            for i in range(n_full, n):
                 batch = _scan_at(batches, i).to(device)
-                if i == c and pending is not None and pending[2] > 0:
-                    batch = _with_loop(batch, *pending)
                 state, out = scan_step(state, batch, config)
                 outs.append(out)
-            pending = None
-            if loop_detector is not None:
-                poses = _host(torch.stack([o.pose for o in outs[c:c + chunk]]))
-                for j in range(chunk):
-                    i = c + j
-                    if i % loop_detector.cfg.keyframe_every:
-                        continue  # store() drops non-keyframes
-                    b = _scan_at(batches, i)
-                    loop_detector.store(i, poses[j], _host(b.points), _host(b.point_weights), None)
-                if c + chunk < n:
-                    nb = _scan_at(batches, c + chunk)
-                    pending = loop_detector.detect(c + chunk, poses[-1], _host(nb.points), _host(nb.point_weights))
-        for i in range(n_full, n):
-            state, out = scan_step(state, _scan_at(batches, i).to(device), config)
-            outs.append(out)
+                if live_viewer is not None:
+                    _log_live(live_viewer, i, batch, out, state, config)
+    finally:
+        if live_viewer is not None:
+            live_viewer.close()
     return state, stack_outputs(outs)

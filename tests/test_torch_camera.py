@@ -15,8 +15,9 @@ Two properties of the reference bound how close the ports can be:
     neighbourhood is (near) rank-deficient, lambda_min sits at its 1e-6
     floor plus rounding, so that precision follows the rounding. On clouds
     with full-rank neighbourhoods both agree to float32 level.
-The JAX generator is pinned to its pure route (GCSLAM_NO_NATIVE=1): the
-native C++ corner route is not what the port mirrors."""
+The generator test is the pure route of both packages: the JAX generator
+pinned with GCSLAM_NO_NATIVE=1, the port's with native=False. The native
+route (the default of both) is held in tests/test_torch_native.py."""
 
 import dataclasses
 
@@ -206,7 +207,8 @@ def test_generate_with_camera(jrun, monkeypatch):
                      for x in jc.harris_corners(jnp.asarray(gray.cpu().numpy()), n_feat, **kw))
 
     monkeypatch.setattr(tc, "harris_corners", jax_corners)
-    mine = tsyn.generate(tsyn.SyntheticConfig(n_scans=N_SCANS, n_points=512, with_camera=True), device="cpu")
+    mine = tsyn.generate(tsyn.SyntheticConfig(n_scans=N_SCANS, n_points=512, with_camera=True), device="cpu",
+                         native=False)
     np.testing.assert_array_equal(mine.gt_poses, jrun.gt_poses)
     for jb, tb in zip(jrun.batches, mine.batches):
         for f in tb._fields:

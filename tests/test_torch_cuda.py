@@ -194,12 +194,12 @@ def test_raster_kernel_refuses_what_it_does_not_take(cuda):
 
 
 def test_camera_run_bag_on_cuda_matches_cpu(cuda):
-    """The camera-on replay: frontend on each device (the same corners: the
-    filters are shifted sums, exact on both), then 5 scans at the SMALL
-    budgets on each; poses agree to a few micrometres."""
+    """The camera-on replay on the pure route: frontend on each device (the
+    same corners: the filters are shifted sums, exact on both), then 5 scans
+    at the SMALL budgets on each; poses agree to a few micrometres."""
     cfg = PipelineConfig(with_camera=True, **SMALL)
-    run_cpu = generate(SyntheticConfig(n_scans=5, n_points=512, with_camera=True), device="cpu")
-    run_gpu = generate(SyntheticConfig(n_scans=5, n_points=512, with_camera=True), device=cuda)
+    run_cpu = generate(SyntheticConfig(n_scans=5, n_points=512, with_camera=True), device="cpu", native=False)
+    run_gpu = generate(SyntheticConfig(n_scans=5, n_points=512, with_camera=True), device=cuda, native=False)
     for bc, bg in zip(run_cpu.batches, run_gpu.batches):
         assert bg.cam_valid.is_cuda and torch.equal(bc.cam_valid, bg.cam_valid.cpu())
         torch.testing.assert_close(bg.cam_etas.cpu(), bc.cam_etas, rtol=1e-5, atol=1e-6)
@@ -226,6 +226,30 @@ def test_camera_run_bag_on_cuda_matches_cpu(cuda):
     # across devices the projection's texture hash sees sin's last bit
     # (measured 8.5e-5 on 58 of 57600 values; albedo bound 1e-3)
     torch.testing.assert_close(rgb_g.cpu(), rgb_c, rtol=0, atol=1e-3)
+
+
+def test_camera_native_route_on_cuda_matches_cpu(cuda):
+    """The generator's default route (the C++ corner stage on the host, the
+    lift on each device), then 5 scans at the SMALL budgets on each. The
+    native stage keeps 62-81 corners a frame (the pure route > 200), so the
+    young map's first match (scan 2) leans on the LiDAR surfels, whose
+    float32 rounding moves scan 3's pose by ~2e-5 m across devices (2.6e-5 m
+    measured on the H100; 1.6e-5 m between the packages on the CPU,
+    tests/test_torch_native_route.py): poses are held at 1e-4 m. The
+    camera rows are float64 lifts of float32 LiDAR operands reduced in
+    other orders on each device: 1.05e-9 relative measured on the H100,
+    held at 1e-8."""
+    cfg = PipelineConfig(with_camera=True, **SMALL)
+    run_cpu = generate(SyntheticConfig(n_scans=5, n_points=512, with_camera=True), device="cpu")
+    run_gpu = generate(SyntheticConfig(n_scans=5, n_points=512, with_camera=True), device=cuda)
+    for bc, bg in zip(run_cpu.batches, run_gpu.batches):
+        assert bg.cam_valid.is_cuda and torch.equal(bc.cam_valid, bg.cam_valid.cpu())
+        assert int(bc.cam_valid.sum()) > 50
+        torch.testing.assert_close(bg.cam_Lambdas.cpu(), bc.cam_Lambdas, rtol=1e-8,
+                                   atol=1e-12 * float(bc.cam_Lambdas.abs().max()))
+    _, cpu = runner.run_bag(run_cpu.batches, cfg, device="cpu")
+    _, gpu = runner.run_bag(run_gpu.batches, cfg, device=cuda)
+    np.testing.assert_allclose(gpu.pose.cpu().numpy(), cpu.pose.numpy(), rtol=0, atol=1e-4)
 
 
 def test_bag_decoder_builds_from_a_clean_build_dir(cuda, tmp_path, monkeypatch):
@@ -289,3 +313,120 @@ def test_bag_load_and_replay_on_cuda_match_cpu(cuda, tmp_path, with_camera):
     _, gpu = runner.run_bag(gpu_b, cfg)
     assert sinkhorn.COUNTER.launches - before == cfg.map_icp_iters * 6
     np.testing.assert_allclose(gpu.pose.cpu().numpy(), cpu.pose.numpy(), rtol=0, atol=1e-5)
+
+
+_F32_CHILD = r"""
+import json
+import numpy as np
+import torch
+from gcslam_torch.eval.ate_rpe import compute_ate
+from gcslam_torch.frontend.synthetic import SyntheticConfig, generate
+from gcslam_torch.models import runner
+from gcslam_torch.models.config import PipelineConfig
+from gcslam_torch.ops import association, sinkhorn
+from gcslam_torch.utils.dtypes import BELIEF_DTYPE
+
+calls = []
+kernel = association.sinkhorn_unbalanced
+association.sinkhorn_unbalanced = lambda C, *a, **k: calls.append((str(C.dtype), tuple(C.shape))) or kernel(C, *a, **k)
+run = generate(SyntheticConfig(n_scans=5, n_points=8192))
+before = sinkhorn.COUNTER.launches
+_, out = runner.run_bag(run.batches, PipelineConfig())
+launches = sinkhorn.COUNTER.launches - before
+flagship_calls = sorted(set(calls))
+small = dict(with_map=True, atlas_max_tiles=16, m_tile=128, m_tile_view=64, n_surfel=128, surfel_voxel_size_m=0.5)
+srun = generate(SyntheticConfig(n_scans=5, n_points=512), device="cpu")
+_, cpu = runner.run_bag(srun.batches, PipelineConfig(**small), device="cpu")
+_, gpu = runner.run_bag(srun.batches, PipelineConfig(**small))
+print(json.dumps({
+    "dtype": str(BELIEF_DTYPE), "pose_dtype": str(out.pose.dtype), "launches": launches, "calls": flagship_calls,
+    "finite": bool(torch.isfinite(out.pose).all()),
+    "ate": compute_ate(out.pose.double().cpu().numpy(), run.gt_poses)["translation"]["rmse"],
+    "small_cpu_vs_cuda": float((gpu.pose.cpu() - cpu.pose).abs().max()),
+}))
+"""
+
+
+def test_f32_belief_flagship_on_cuda(cuda):
+    """The f32-belief mode (a child process with GCSLAM_BELIEF_DTYPE set):
+    5 flagship scans launch the Sinkhorn's f32 instance, two per scan at
+    (1024, 8); the SMALL world's f32 replay on the card and on the CPU agree
+    within the tolerance of test_run_bag_on_cuda_matches_cpu scaled to
+    float32 (1e-3)."""
+    import json
+    import os
+    import pathlib
+    import subprocess
+    import sys
+
+    root = pathlib.Path(__file__).resolve().parent.parent
+    env = dict(os.environ, GCSLAM_BELIEF_DTYPE="float32",
+               PYTHONPATH=os.pathsep.join(filter(None, [str(root), os.environ.get("PYTHONPATH")])))
+    out = subprocess.run([sys.executable, "-c", _F32_CHILD], env=env, capture_output=True, text=True, timeout=900)
+    assert out.returncode == 0, out.stderr[-2000:]
+    r = json.loads(out.stdout.strip().splitlines()[-1])
+    assert r["dtype"] == r["pose_dtype"] == "torch.float32" and r["finite"]
+    assert r["launches"] == 10 and r["calls"] == [["torch.float32", [1024, 8]]]
+    assert r["ate"] < 0.30
+    assert r["small_cpu_vs_cuda"] < 1e-3, r["small_cpu_vs_cuda"]
+
+
+def test_camera_bag_at_640x480_through_eval_run(cuda, tmp_path):
+    """The canonical route on the card at the camera's full size: a 4-scan
+    bag from tools/make_synth_bag with the rehearsal's arguments (640 x 480
+    JPEG + 16UC1 frames), then eval.run --chunk 10 --loop --live-view at
+    configs/gc_kimera.yaml's budgets: every artifact, the audit passing,
+    one live.jsonl line per scan, two Sinkhorn launches per scan, each at
+    (n_surfel + n_feat, k_assoc) = (1024, 8)."""
+    import json
+    import pathlib
+
+    from gcslam_torch.eval import run as eval_run
+    from gcslam_torch.ops import association
+    from gcslam_torch.tools import make_synth_bag
+
+    config = str(pathlib.Path(__file__).resolve().parent.parent / "configs" / "gc_kimera.yaml")
+    bag, gt = str(tmp_path / "b.db3"), str(tmp_path / "gt.tum")
+    make_synth_bag.main(["--out", bag, "--gt", gt, "--config", config, "--scans", "4", "--points", "4096"])
+    shapes = []
+    kernel = association.sinkhorn_unbalanced
+
+    def recording(C, *a, **k):
+        shapes.append(tuple(C.shape))
+        return kernel(C, *a, **k)
+
+    association.sinkhorn_unbalanced = recording
+    try:
+        before = sinkhorn.COUNTER.launches
+        metrics = eval_run.main(["--bag", bag, "--config", config, "--gt", gt, "--chunk", "10", "--loop",
+                                 "--live-view", str(tmp_path / "live"), "--out", str(tmp_path / "run")])
+        launches = sinkhorn.COUNTER.launches - before
+    finally:
+        association.sinkhorn_unbalanced = kernel
+    assert metrics["n_scans"] == 4 and metrics["device"] == "cuda"
+    assert json.load(open(tmp_path / "run" / "audit.json"))["all_pass"]
+    lines = [json.loads(line) for line in open(tmp_path / "live" / "live.jsonl")]
+    assert [e["scan"] for e in lines if "pose" in e] == [0, 1, 2, 3]
+    assert launches == 8 and set(shapes) == {(1024, 8)}
+
+
+def test_eval_run_precision_f32_on_cuda(cuda, tmp_path):
+    """`eval.run --precision f32` on the card: the CLI re-executes itself
+    with GCSLAM_BELIEF_DTYPE=float32; the manifest records the float32
+    belief and the CUDA device, and the trajectory is finite."""
+    import json
+    import os
+    import pathlib
+    import subprocess
+    import sys
+
+    root = pathlib.Path(__file__).resolve().parent.parent
+    env = {k: v for k, v in os.environ.items() if k != "GCSLAM_BELIEF_DTYPE"}
+    env["PYTHONPATH"] = os.pathsep.join(filter(None, [str(root), env.get("PYTHONPATH")]))
+    out = subprocess.run([sys.executable, "-m", "gcslam_torch.eval.run", "--precision", "f32", "--scans", "3",
+                          "--points", "2048", "--out", str(tmp_path / "run")],
+                         env=env, capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-2000:]
+    manifest = json.load(open(tmp_path / "run" / "runtime_manifest.json"))
+    assert manifest["belief_dtype"] == "float32" and manifest["device_runtime"]["platform"] == "cuda"
+    assert np.isfinite(np.loadtxt(tmp_path / "run" / "trajectory.tum")).all()

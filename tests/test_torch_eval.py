@@ -14,6 +14,8 @@ import json
 import os
 import pathlib
 import shutil
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -39,6 +41,9 @@ CONFIGS = [str(ROOT / "configs" / "gc_kimera.yaml"), str(ROOT / "configs" / "gc_
 # the JAX package's manifest keys with no counterpart in the port: its
 # three XLA backend selectors
 JAX_ONLY_MANIFEST = {f"config.{k}" for k in EXCLUDED}
+# the port's manifest keys with no counterpart in the JAX package: the
+# frontend route GCSLAM_NO_NATIVE picks (the JAX package records none)
+PORT_ONLY_MANIFEST = {"frontend_route"}
 # The eval runs read the first EVAL_SCANS scans of an 80-scan world: in a
 # 6-scan world the rig's start ramp (a quarter of the run) is so short
 # that neither package's map takes a primitive in 6 scans.
@@ -136,14 +141,15 @@ def test_manifest_matches_jax(runs):
     (jdir, _), (tdir, _) = runs["jax"], runs["torch"]
     jm = json.load(open(os.path.join(jdir, "runtime_manifest.json")))
     tm = json.load(open(os.path.join(tdir, "runtime_manifest.json")))
-    assert set(tm) == set(jm) - JAX_ONLY_MANIFEST
-    for k in set(tm) - {"backends", "device_runtime"}:
+    assert set(tm) - PORT_ONLY_MANIFEST == set(jm) - JAX_ONLY_MANIFEST
+    for k in set(tm) - {"backends", "device_runtime"} - PORT_ONLY_MANIFEST:
         assert tm[k] == jm[k], k
     assert set(tm["backends"]) == set(jm["backends"])
     assert tm["device_runtime"]["platform"] == "cpu"
+    assert tm["frontend_route"] == "native"  # the JAX run's route too (jax_native)
     got = manifest.runtime_manifest(PipelineConfig(**SMALL))
     ref = jmanifest.runtime_manifest(JConfig(**SMALL))
-    assert {k: v for k, v in got.items() if k != "backends"} == {
+    assert {k: v for k, v in got.items() if k not in PORT_ONLY_MANIFEST | {"backends"}} == {
         k: v for k, v in ref.items() if k not in JAX_ONLY_MANIFEST | {"backends"}}
 
 
@@ -177,10 +183,22 @@ def test_audit_flags_what_the_jax_audit_flags(runs, tmp_path, breakage):
 
 
 def test_eval_run_refuses_what_is_not_ported(tmp_path, monkeypatch):
-    with pytest.raises(NotImplementedError, match="live_view"):
-        run.main(["--cpu", "--live-view", str(tmp_path / "live"), "--scans", "2", "--out", str(tmp_path / "a")])
-    with pytest.raises(NotImplementedError, match="f32"):
-        run.main(["--cpu", "--precision", "f32", "--scans", "2", "--out", str(tmp_path / "b")])
+    """Everything the JAX package's CLI takes now runs: --live-view (the
+    file backend, one line per scan) and --precision f32 (the process
+    re-executes itself with GCSLAM_BELIEF_DTYPE set, so it runs as a
+    child here). What stays refused is a run without a card unless --cpu."""
+    live = tmp_path / "live"
+    run.main(["--cpu", "--no-map", "--live-view", str(live), "--scans", "2", "--points", "256",
+              "--out", str(tmp_path / "a")])
+    assert [json.loads(line)["scan"] for line in open(live / "live.jsonl")] == [0, 1]
+    env = {k: v for k, v in os.environ.items() if k != "GCSLAM_BELIEF_DTYPE"}
+    env["PYTHONPATH"] = os.pathsep.join(filter(None, [str(ROOT), env.get("PYTHONPATH")]))
+    out = subprocess.run([sys.executable, "-m", "gcslam_torch.eval.run", "--cpu", "--precision", "f32", "--no-map",
+                          "--scans", "2", "--points", "256", "--out", str(tmp_path / "b")],
+                         capture_output=True, text=True, env=env, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert json.load(open(tmp_path / "b" / "runtime_manifest.json"))["belief_dtype"] == "float32"
+    assert np.isfinite(np.loadtxt(tmp_path / "b" / "trajectory.tum")).all()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA card"):
         run.main(["--scans", "2", "--out", str(tmp_path / "c")])
