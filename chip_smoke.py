@@ -7,7 +7,9 @@ Phases, in order; any failure exits non-zero before the result line:
      `nvidia-smi` name + power limit;
   2. kernels: builds csrc/sinkhorn.cu and csrc/raster.cu with nvcc (one
      process each, started together) and holds each kernel against its
-     plain PyTorch version on the card at the main paths' shapes: Sinkhorn
+     plain PyTorch version on the card at the main paths' shapes (the
+     Sinkhorn at B = 1, 2, 4 and 8 problems of 1024 rows among them, the
+     sweep's): Sinkhorn
      in f32 and f64 with a third of the rows at zero mass, the launcher's
      cluster size per shape (checked against ops/sinkhorn.cluster_layout),
      two launches bit-equal; the splat rasterizer at P = 4096 on 240 x 320
@@ -81,7 +83,22 @@ Phases, in order; any failure exits non-zero before the result line:
      GCSLAM_BELIEF_DTYPE=float32 (the dtype binds at import): finite
      float32 poses, the ATE gate, exactly 100 launches, every one the
      kernel's f32 instance at (1024, 8); ms/scan and PRECISION_r05.json's
-     certificate fields beside phase 3's f64 run.
+     certificate fields beside phase 3's f64 run;
+ 14. replay sweeps (parallel/sweep.py): the vmapped Sinkhorn is one launch
+     for all problems, bit-equal to per-problem launches; 8 flagship runs
+     (seeds 0-7, 50 scans of 8192 points) through sweep.run_sweep, with
+     no op on vmap's per-sample path (its warning fails the phase): every
+     run under the ATE gate, the seeds' trajectories apart, run 0's ATE
+     within 1e-3 m of phase 3's run_bag (its largest pose difference and
+     whether it is bit-equal recorded), exactly 2 Sinkhorn launches a
+     scan, all on (8, 1024, 8); run 0 over 10 scans beside the other
+     seven in reverse order bit-equal to run 0 of that sweep (no run
+     depends on another); at R = 1, 2, 4 and 8, ms/scan over 10
+     scans after 2, 2 launches a scan on (R, 1024, 8), and a profile
+     (launch calls, device busy share; 3 scans at R = 8, one at the
+     others); the per-hypothesis sweep (map_gn_shared=False) at R = 2 over
+     10 scans, every launch on (2 x K_HYP, 1024, 8); two R = 2 sweeps
+     bit-equal.
 Before the last line it prints {"paths": ...} and {"kernels": [...]}, one
 kernel record per instance the main paths launch (dtype and shape), and
 fails if one was never launched; the last line is {"ok": true, "device":
@@ -94,6 +111,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 from types import SimpleNamespace
 
@@ -109,8 +127,8 @@ N_WARMUP = 5
 N_DETERMINISM = 10
 GATE_ATE_TRANS_RMSE_M = 0.30
 GATE_ATE_ROT_RMSE_DEG = 4.0
-SINKHORN_CASES = [(1, 1024, 8), (4, 1024, 8), (1, 1536, 8), (1, 512, 8), (1, 257, 8), (1, 1, 8), (1, 2048, 8),
-                  (4, 129, 20)]
+SINKHORN_CASES = [(1, 1024, 8), (2, 1024, 8), (4, 1024, 8), (8, 1024, 8), (1, 1536, 8), (1, 512, 8), (1, 257, 8),
+                  (1, 1, 8), (1, 2048, 8), (4, 129, 20)]
 SINKHORN_ARGS = dict(epsilon=0.05, tau_a=1.0, tau_b=1.0, n_iters=50)
 TOL = {"float32": dict(rtol=2e-5, atol=1e-7), "float64": dict(rtol=1e-10, atol=1e-30)}
 RASTER_CASES = [(4096, 240, 320), (4096, 360, 480)]  # render_atlas at RenderParams(); the viewer
@@ -217,6 +235,15 @@ JAX_CANON_ATE = {  # m, deg
     "port_state_6": (0.026998326359995283, 0.3464756778121996),
 }
 CANON_ATE_BOUND_M = 0.05  # tests/test_pipeline.py:395
+# Phase 14: replay sweeps (parallel/sweep.py), R runs of the flagship world
+# (seeds 0 to R - 1) advancing together under torch.func.vmap
+SWEEP_RUNS = 8
+SWEEP_R = (1, 2, 4, 8)
+SWEEP_WARMUP = 2  # scans before each timed R
+SWEEP_SCANS = 10  # timed scans at each R, the cross-run witness, the per-hypothesis sweep and the repeat runs
+SWEEP_PROFILE_SCANS = 3  # profiled scans at R = 8 (one at the other R)
+SWEEP_RUN0_ATE_BOUND_M = 1e-3  # |ATE of sweep run 0 - ATE of phase 3's run_bag|
+SWEEP_SEEDS_DIFFER_M = 1e-4
 # Phase 13: the f32-belief flagship (the JAX package's production mode,
 # BENCH_r05.json), in a child process with GCSLAM_BELIEF_DTYPE=float32
 F32_ENV = {"GCSLAM_BELIEF_DTYPE": "float32"}
@@ -346,8 +373,11 @@ def sinkhorn_bound(B: int, N: int, K: int, n_iters: int, itemsize: int, peak: fl
 
 
 MAIN_SINKHORN = {  # the main paths' instances: (dtype, B, N) -> the phases that launch it
-    ("float64", 1, 1024): "flagship, live modes, options, canonical camera-on bag (512 surfels + 512 features)",
-    ("float64", 4, 1024): "per hypothesis",
+    ("float64", 1, 1024): "flagship, live modes, options, canonical camera-on bag (512 surfels + 512 features), "
+                          "sweep R = 1",
+    ("float64", 2, 1024): "sweep R = 2 (shared GN: one problem a run)",
+    ("float64", 4, 1024): "per hypothesis; sweep R = 4",
+    ("float64", 8, 1024): "sweep R = 8; per-hypothesis sweep R = 2 (2 runs x K_HYP)",
     ("float64", 1, 1536): "camera path",
     ("float64", 1, 512): "bag replay, camera off",
     ("float32", 1, 1024): "f32-belief flagship",
@@ -708,31 +738,14 @@ def phase_viewer(state, out, run):
 
 
 def profile_scans(device, cfg, batches, n: int = N_PROFILE_SCANS):
-    """torch.profiler over n scans after a 5-scan warm-up: kernel launches
-    per scan (runtime launch calls), device kernels per scan, and the
-    device's busy share of the profiled span (kernels, copies and sets)."""
+    """profile_record over n run_bag scans after a 5-scan warm-up."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from gcslam_torch.models import runner
+    from gcslam_torch.utils.cuda_profile import profile_record
 
     state, _ = runner.run_bag(batches[:N_WARMUP], cfg, device=device)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        runner.run_bag(batches[N_WARMUP:N_WARMUP + n], cfg, state=state, device=device)
-        torch.cuda.synchronize()
-        span_ms = 1e3 * (time.perf_counter() - t0)
-    rows = prof.key_averages()
-    launch_calls = sum(e.count for e in rows if e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")))
-    dev = [e for e in rows if getattr(e, "device_type", None) == DeviceType.CUDA]
-    kernels = sum(e.count for e in dev if not e.key.startswith(("Memcpy", "Memset")))
-    busy_us = sum(getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0) for e in dev)
-    return dict(launch_calls_per_scan=launch_calls / n if launch_calls else None,
-                device_kernels_per_scan=kernels / n if kernels else None,
-                device_busy_ms_per_scan=busy_us / 1e3 / n if busy_us else None,
-                profiled_span_ms_per_scan=span_ms / n,
-                device_busy_share=(busy_us / 1e3) / span_ms if busy_us else None)
+    return profile_record(lambda: runner.run_bag(batches[N_WARMUP:N_WARMUP + n], cfg, state=state, device=device), n)
 
 
 def fmt_profile(p) -> str:
@@ -1129,6 +1142,188 @@ def phase_canonical(device, sk_rec, rs_rec):
     return record, launches, viewer_launches
 
 
+def sweep_profile(device, cfg, runs, states, n: int):
+    """profile_record over n sweep steps from `states`, traced with the
+    CUDA activity alone (the runtime's launch calls and the device's
+    kernels, copies and sets): tracing every host op as well, as phase 8
+    does, costs ~15 s a profiled scan."""
+    from gcslam_torch.parallel import sweep
+    from gcslam_torch.utils.cuda_profile import profile_record
+
+    rec = profile_record(lambda: sweep.run_sweep([r[SWEEP_WARMUP:SWEEP_WARMUP + n] for r in runs], cfg,
+                                                 states=states, device=device), n, activities=("cuda",))
+    return {**rec, "profiled_scans": n, "activities": "cuda"}
+
+
+def phase_sweep(device, run, out_flag, ate_flag):
+    """Replay sweeps: SWEEP_RUNS flagship runs through sweep_step, the
+    R-scaling, the per-hypothesis sweep and repeat runs; returns the record
+    and the Sinkhorn launches by instance (dtype, B, N)."""
+    import torch
+    from gcslam_torch import constants as C
+    from gcslam_torch.eval.ate_rpe import compute_ate
+    from gcslam_torch.frontend.synthetic import SyntheticConfig, generate
+    from gcslam_torch.models.config import PipelineConfig
+    from gcslam_torch.ops import sinkhorn
+    from gcslam_torch.parallel import sweep
+
+    cfg = PipelineConfig()
+    K, N = cfg.k_assoc, cfg.n_surfel
+    t0 = t_phase = time.perf_counter()
+    worlds = [run] + [generate(SyntheticConfig(n_scans=N_SCANS, n_points=N_POINTS, seed=s), device=device)
+                      for s in range(1, SWEEP_RUNS)]
+    runs = [w.batches for w in worlds]
+    print(f"generated {SWEEP_RUNS - 1} more flagship worlds (seeds 1-{SWEEP_RUNS - 1}) in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # the vmap rule: one launch for all problems, equal to per-problem launches
+    Cm, a, b, _ = sinkhorn_inputs(SWEEP_RUNS, N, K, torch.float64, device, seed=14)
+    sinkhorn.COUNTER.reset()
+    folded = torch.func.vmap(torch.func.vmap(lambda c, x: sinkhorn.sinkhorn_unbalanced(c, x, b[0], **SINKHORN_ARGS)))(
+        Cm.reshape(2, SWEEP_RUNS // 2, N, K), a.reshape(2, SWEEP_RUNS // 2, N))
+    if sinkhorn.COUNTER.launches != 1 or sinkhorn.COUNTER.shapes != {(SWEEP_RUNS, N, K)}:
+        fail(f"sweep: the vmapped sinkhorn made {sinkhorn.COUNTER.launches} launches on {sinkhorn.COUNTER.shapes}")
+    per = torch.stack([sinkhorn.sinkhorn_unbalanced(Cm[i], a[i], b[0], **SINKHORN_ARGS) for i in range(SWEEP_RUNS)])
+    if not torch.equal(folded.reshape(per.shape), per):
+        fail("sweep: the vmapped sinkhorn differs from per-problem launches")
+    print(f"sweep: vmapped sinkhorn (2, {SWEEP_RUNS // 2}, {N}, {K}) is one launch of B = {SWEEP_RUNS}, "
+          f"bit-equal to {SWEEP_RUNS} per-problem launches")
+
+    launches = {}
+
+    def count(key, n):
+        launches[key] = launches.get(key, 0) + n
+
+    # the main path: SWEEP_RUNS runs over all scans; an op without a vmap
+    # batching rule would run per sample and warn "There is a performance drop"
+    sinkhorn.COUNTER.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        _, outs, aggs = sweep.run_sweep(runs, cfg, device=device)
+        torch.cuda.synchronize()
+    ms_main = 1e3 * (time.perf_counter() - t0) / N_SCANS
+    per_sample = sorted({str(w.message)[:120] for w in caught if "performance drop" in str(w.message)})
+    if per_sample:
+        fail(f"sweep: ops on vmap's per-sample path: {per_sample}")
+    n_main, shapes = sinkhorn.COUNTER.launches, sinkhorn.COUNTER.shapes
+    if n_main != cfg.map_icp_iters * N_SCANS or shapes != {(SWEEP_RUNS, N, K)}:
+        fail(f"sweep: {n_main} sinkhorn launches on {shapes}, expected {cfg.map_icp_iters * N_SCANS} on "
+             f"{(SWEEP_RUNS, N, K)}")
+    count(("float64", SWEEP_RUNS, N), n_main)
+    poses = outs.pose.cpu().numpy()
+    if poses.shape != (SWEEP_RUNS, N_SCANS, 6) or not np.all(np.isfinite(poses)):
+        fail(f"sweep: poses not finite or of wrong shape {poses.shape}")
+    ates = [compute_ate(p, w.gt_poses, align="initial") for p, w in zip(poses, worlds)]
+    for r, ate in enumerate(ates):
+        if ate["translation"]["rmse"] > GATE_ATE_TRANS_RMSE_M or ate["rotation_deg"]["rmse"] > GATE_ATE_ROT_RMSE_DEG:
+            fail(f"sweep run {r} ATE gate: {ate['translation']['rmse']:.4f} m / {ate['rotation_deg']['rmse']:.4f} deg")
+    seeds_apart = min(float(np.abs(poses[i] - poses[j]).max()) for i in range(SWEEP_RUNS) for j in range(i))
+    if seeds_apart <= SWEEP_SEEDS_DIFFER_M:
+        fail(f"sweep: two seeds' trajectories within {seeds_apart:.3e} m")
+    d_pose = float(np.abs(poses[0] - out_flag.pose.cpu().numpy()).max())
+    d_ate = abs(ates[0]["translation"]["rmse"] - ate_flag["translation"]["rmse"])
+    bit_equal = bool(np.array_equal(poses[0], out_flag.pose.cpu().numpy()))
+    if d_ate > SWEEP_RUN0_ATE_BOUND_M:
+        fail(f"sweep run 0: ATE {d_ate:.3e} m from phase 3's run_bag")
+    spread = [float(a["pose_spread"]) for a in aggs]
+    print(f"sweep of {SWEEP_RUNS} flagship runs x {N_SCANS} scans: {ms_main:.2f} ms/scan ({ms_main / SWEEP_RUNS:.2f} "
+          f"per run, cold), {n_main} sinkhorn launches all on {(SWEEP_RUNS, N, K)}; ATE per run "
+          f"{', '.join('%.4f' % a['translation']['rmse'] for a in ates)} m (max "
+          f"{max(a['rotation_deg']['rmse'] for a in ates):.3f} deg); seeds >= {seeds_apart:.3e} m apart; run 0 vs "
+          f"phase 3: max |d pose| {d_pose:.3e}, |d ATE| {d_ate:.3e} m, bit-equal {bit_equal}; final pose spread "
+          f"{spread[-1]:.4f} m")
+
+    # the cross-run witness: run 0 again beside the other seven runs in
+    # reverse order; any dependence of a run on the others would show here,
+    # batching's rounding (the same shapes) would not
+    sinkhorn.COUNTER.reset()
+    _, outs_w, _ = sweep.run_sweep([r[:SWEEP_SCANS] for r in [runs[0]] + runs[:0:-1]], cfg, device=device)
+    n_w, shapes = sinkhorn.COUNTER.launches, sinkhorn.COUNTER.shapes
+    if n_w != cfg.map_icp_iters * SWEEP_SCANS or shapes != {(SWEEP_RUNS, N, K)}:
+        fail(f"sweep witness: {n_w} sinkhorn launches on {shapes}, expected {cfg.map_icp_iters * SWEEP_SCANS} on "
+             f"{(SWEEP_RUNS, N, K)}")
+    count(("float64", SWEEP_RUNS, N), n_w)
+    witness = outs_w.pose[0].cpu().numpy()
+    if not np.array_equal(witness, poses[0, :SWEEP_SCANS]):
+        fail(f"sweep witness: run 0 beside other runs differs by {np.abs(witness - poses[0, :SWEEP_SCANS]).max():.3e}"
+             f" over {SWEEP_SCANS} scans")
+    print(f"sweep witness: run 0 beside runs 7-1 is bit-equal to run 0 beside runs 1-7 over {SWEEP_SCANS} scans "
+          f"({n_w} sinkhorn launches on {(SWEEP_RUNS, N, K)})")
+
+    print(f"[sweep of {SWEEP_RUNS} runs: {time.perf_counter() - t_phase:.1f} s into phase 14]")
+
+    # R-scaling: ms/scan and launches per scan after a warm-up, then a
+    # profile (SWEEP_PROFILE_SCANS at R = 8, one scan at the others)
+    scaling, repeat = {}, None
+    for R in SWEEP_R:
+        sub = runs[:R]
+        states, _, _ = sweep.run_sweep([r[:SWEEP_WARMUP] for r in sub], cfg, device=device)
+        torch.cuda.synchronize()
+        sinkhorn.COUNTER.reset()
+        t0 = time.perf_counter()
+        _, outs_r, _ = sweep.run_sweep([r[SWEEP_WARMUP:SWEEP_WARMUP + SWEEP_SCANS] for r in sub], cfg, states=states,
+                                       device=device)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / SWEEP_SCANS
+        n_r, shapes = sinkhorn.COUNTER.launches, sinkhorn.COUNTER.shapes
+        if n_r != cfg.map_icp_iters * SWEEP_SCANS or shapes != {(R, N, K)}:
+            fail(f"sweep R={R}: {n_r} sinkhorn launches on {shapes}, expected {cfg.map_icp_iters * SWEEP_SCANS} "
+                 f"on {(R, N, K)}")
+        count(("float64", R, N), n_r)
+        if R == 2:  # the repeat run: the same sweep again from the same states
+            sinkhorn.COUNTER.reset()
+            _, outs_rep, _ = sweep.run_sweep([r[SWEEP_WARMUP:SWEEP_WARMUP + SWEEP_SCANS] for r in sub], cfg,
+                                             states=states, device=device)
+            n_rep, shapes = sinkhorn.COUNTER.launches, sinkhorn.COUNTER.shapes
+            if n_rep != cfg.map_icp_iters * SWEEP_SCANS or shapes != {(R, N, K)}:
+                fail(f"sweep repeat: {n_rep} sinkhorn launches on {shapes}, expected "
+                     f"{cfg.map_icp_iters * SWEEP_SCANS} on {(R, N, K)}")
+            count(("float64", R, N), n_rep)
+            repeat = (outs_r.pose, outs_rep.pose)
+        prof = sweep_profile(device, cfg, sub, states, SWEEP_PROFILE_SCANS if R == max(SWEEP_R) else 1)
+        scaling[R] = {"ms_per_scan": ms, "ms_per_run_scan": ms / R, "sinkhorn_launches_per_scan": n_r / SWEEP_SCANS,
+                      "profile": prof}
+        print(f"sweep R={R}: {ms:.2f} ms/scan ({ms / R:.2f} per run) over {SWEEP_SCANS} scans after {SWEEP_WARMUP}; "
+              f"{n_r / SWEEP_SCANS:.0f} sinkhorn launches/scan on {(R, N, K)}; profile: {fmt_profile(prof)} "
+              f"[{time.perf_counter() - t_phase:.1f} s into phase 14]")
+
+    # the per-hypothesis sweep: one launch per GN round for R x K_HYP problems
+    cfg_h = PipelineConfig(map_gn_shared=False)
+    B_h = 2 * C.K_HYP
+    sinkhorn.COUNTER.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, outs_h, _ = sweep.run_sweep([r[:SWEEP_SCANS] for r in runs[:2]], cfg_h, device=device)
+    torch.cuda.synchronize()
+    ms_h = 1e3 * (time.perf_counter() - t0) / SWEEP_SCANS
+    n_h, shapes_h = sinkhorn.COUNTER.launches, sinkhorn.COUNTER.shapes
+    if n_h != cfg_h.map_icp_iters * SWEEP_SCANS or shapes_h != {(B_h, N, K)}:
+        fail(f"per-hypothesis sweep: {n_h} launches on {shapes_h}, expected {cfg_h.map_icp_iters * SWEEP_SCANS} on "
+             f"{(B_h, N, K)}")
+    if not torch.isfinite(outs_h.pose).all():
+        fail("per-hypothesis sweep: non-finite poses")
+    count(("float64", B_h, N), n_h)
+    print(f"per-hypothesis sweep R=2 (map_gn_shared=False): {ms_h:.2f} ms/scan over {SWEEP_SCANS} scans (cold), "
+          f"{n_h} sinkhorn launches all on {(B_h, N, K)} [{time.perf_counter() - t_phase:.1f} s into phase 14]")
+
+    if not torch.equal(*repeat):
+        fail(f"sweep repeat runs differ: max |dpose| {(repeat[0] - repeat[1]).abs().max().item():.3e}")
+    print(f"sweep determinism: two R=2 {SWEEP_SCANS}-scan sweeps give bit-equal poses")
+
+    record = {"runs": SWEEP_RUNS, "n_scans": N_SCANS, "ms_per_scan": ms_main,
+              "ate_m": [a["translation"]["rmse"] for a in ates], "ate_deg": [a["rotation_deg"]["rmse"] for a in ates],
+              "run0_max_abs_dpose_vs_run_bag": d_pose, "run0_ate_minus_run_bag_m": d_ate,
+              "run0_bit_equal_to_run_bag": bit_equal, "seeds_min_max_abs_dpose": seeds_apart,
+              "final_pose_spread_m": spread[-1], "sinkhorn_launches": n_main,
+              "run0_bit_equal_beside_other_runs": True, "witness_scans": SWEEP_SCANS,
+              "scaling": {str(R): v for R, v in scaling.items()},
+              "per_hypothesis_r2": {"ms_per_scan_cold": ms_h, "n_scans": SWEEP_SCANS, "sinkhorn_launches": n_h,
+                                    "sinkhorn_shape": [B_h, N, K]}}
+    return record, launches
+
+
 def f32_flagship_child() -> None:
     """Phase 13's child (GCSLAM_BELIEF_DTYPE=float32 binds at import): the
     flagship replay after a warm-up; prints one JSON line."""
@@ -1254,6 +1449,10 @@ def main() -> None:
     f32, launches_f32 = phase_f32(out_flag, ate_flag, ms_flag)
     lap("phase 13")
 
+    # 14. replay sweeps
+    sweep_rec, launches_sweep = phase_sweep(device, run, out_flag, ate_flag)
+    lap("phase 14")
+
     sinkhorn_launches = {
         ("float64", 1, 1024): launches_flag + launches_live + launches_opt + launches_canon,
         ("float64", 4, 1024): launches_hyp,
@@ -1261,6 +1460,8 @@ def main() -> None:
         ("float64", 1, 512): launches_bag,
         ("float32", 1, 1024): launches_f32,
     }
+    for key, n in launches_sweep.items():
+        sinkhorn_launches[key] = sinkhorn_launches.get(key, 0) + n
     raster_launches = {(240, 320): launches_raster, (360, 480): VIEWER_RENDERS + launches_raster_canon}
     kernels = []
     for key, rec in sk.items():
@@ -1295,6 +1496,7 @@ def main() -> None:
         "bag": bag,
         "canonical": canon,
         "f32_flagship": f32,
+        "sweep": sweep_rec,
         "seconds": seconds,
     }}))
     print(json.dumps({"kernels": kernels}))

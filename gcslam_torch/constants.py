@@ -16,10 +16,10 @@ D_DESKEW = 22
 # ---------------------------------------------------------------------------
 # Fixed-cost budgets (compile-time constants; reference constants.py:62-67)
 #
-# GCSLAM_K_HYP / GCSLAM_K_SINKHORN env overrides are the JAX package's
-# rebuild path for its measurement tools (its tools/attribute_step spawns
-# subprocesses with them, as tools/precision_compare does for the dtype);
-# the port has no attribute_step yet and reads them as that package does.
+# GCSLAM_K_HYP / GCSLAM_K_SINKHORN env overrides are the rebuild path of
+# the measurement tools: tools/attribute_step measures its hyp_* and
+# sinkhorn_* variants in child processes started with them (as
+# tools/precision_compare does for the dtype), as the JAX package's does.
 # The production fail-fast still binds config values to whatever this
 # module was imported with, so a mismatched config cannot start.
 # ---------------------------------------------------------------------------

@@ -4,10 +4,12 @@ the JAX package's ops/binned.py).
 `acc[idx[i]] += payload[i]` with duplicate indices is the core of the
 surfel moments and the atlas fuse. Each bin must sum its rows in row order,
 with no float atomics, so a run is bit-reproducible (and the CPU result
-equals the JAX package's serial scatter-add): on the CPU `index_add_` is a
-serial pass; on CUDA `index_put_(accumulate=True)` stable-sorts the
-indices and sums each run of duplicates in order (`index_add_` there would
-use atomics, and `index_put_` on the CPU is threaded).
+equals the JAX package's serial scatter-add): on the CPU `index_add` is a
+serial pass; on CUDA `index_put(accumulate=True)` stable-sorts the
+indices and sums each run of duplicates in order (`index_add` there would
+use atomics, and `index_put` on the CPU is threaded). Both are the
+out-of-place forms, so that the scatters run under torch.func.vmap (the
+replay sweep's run axis) into targets allocated without it.
 
 JAX's `mode="drop"` drops positive out-of-range targets but wraps negative
 ones; torch indexing raises (CPU) or asserts (CUDA) on either. Every
@@ -31,9 +33,9 @@ def scatter_accumulate(idx: torch.Tensor, payload: torch.Tensor, n_bins: int) ->
     acc = payload.new_zeros((n_bins + 1,) + payload.shape[1:])
     routed = _route(idx, n_bins)
     if acc.is_cuda:
-        acc.index_put_((routed,), payload, accumulate=True)
+        acc = acc.index_put((routed,), payload, accumulate=True)
     else:
-        acc.index_add_(0, routed, payload)
+        acc = acc.index_add(0, routed, payload)
     return acc[:n_bins]
 
 
@@ -50,5 +52,4 @@ def scatter_set(target: torch.Tensor, idx: torch.Tensor, values: torch.Tensor) -
     drop. In-range indices must be unique (as in every caller)."""
     n = target.shape[0]
     out = torch.cat([target, target[:1]], dim=0)
-    out.index_put_((_route(idx, n),), values.to(target.dtype))
-    return out[:n]
+    return out.index_put((_route(idx, n),), values.to(target.dtype))[:n]

@@ -25,13 +25,17 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 
 class LaunchCounter:
-    """Count of kernel launches (incremented only where the kernel runs)."""
+    """Count of kernel launches (incremented only where the kernel runs),
+    and the problem shapes launched since the last reset where the wrapper
+    records them."""
 
     def __init__(self):
         self.launches = 0
+        self.shapes = set()
 
     def reset(self) -> None:
         self.launches = 0
+        self.shapes = set()
 
 
 def nvcc() -> str:

@@ -137,8 +137,7 @@ def primitive_pose_evidence(
     h_rot = mv(L_rot, se3.so3_log(R0T @ R_star))
     rot_cost = torch.sum(kw * (1.0 - torch.einsum("...ni,...nki->...nk", meas_dir_w, map_dir)), dim=(-2, -1))
 
-    L6 = L6.clone()
-    L6[..., 3:6, 3:6] += L_rot
+    L6 = linalg.add_block(L6, L_rot, C.IDX_ROT, C.IDX_ROT)
     h6 = torch.cat([h6[..., :3], h6[..., 3:6] + h_rot], -1)
 
     # ---- correlated-error information floor (congruence scaling)
@@ -157,10 +156,9 @@ def primitive_pose_evidence(
     h6 = mv(L6, delta_star)
 
     lead = L6.shape[:-2]
-    L = (cfg.eps_lift * linalg.eye(C.D_Z, L6)).expand(lead + (C.D_Z, C.D_Z)).clone()
-    L[..., C.IDX_POSE, C.IDX_POSE] += L6
-    h = L6.new_zeros(lead + (C.D_Z,))
-    h[..., C.IDX_POSE] = h6
+    L = linalg.add_block((cfg.eps_lift * linalg.eye(C.D_Z, L6)).expand(lead + (C.D_Z, C.D_Z)), L6,
+                         C.IDX_POSE, C.IDX_POSE)
+    h = linalg.set_slice(L6.new_zeros(lead + (C.D_Z,)), h6, C.IDX_POSE)
 
     ess = assoc.row_masses.sum(-1)
     cert = make_cert(

@@ -127,11 +127,10 @@ def _jacobi_rot_3x3(A: torch.Tensor, V: torch.Tensor, p: int, q: int):
     t = torch.where(small, 0.0, sgn_d * 2.0 * apq / (d.abs() + r + 1e-300))
     c = 1.0 / torch.sqrt(1.0 + t * t)
     s = t * c
-    J = eye(3, A).expand(A.shape).clone()
-    J[..., p, p] = c
-    J[..., q, q] = c
-    J[..., p, q] = s
-    J[..., q, p] = -s
+    one, zero = torch.ones_like(c), torch.zeros_like(c)
+    entry = {(p, p): c, (q, q): c, (p, q): s, (q, p): -s}
+    J = torch.stack([entry.get((i, j), one if i == j else zero) for i in range(3) for j in range(3)],
+                    dim=-1).unflatten(-1, (3, 3))
     return sym(J.transpose(-1, -2) @ A @ J), V @ J
 
 
@@ -225,8 +224,7 @@ def rotation_from_scatter(S: torch.Tensor):
     lam = lam.flip(-1)
     V = V.flip(-1)
     detV = det3x3(V)
-    col_sign = torch.ones_like(V[..., 0, :])
-    col_sign[..., 2] = torch.where(detV < 0, -1.0, 1.0)
+    col_sign = torch.cat([torch.ones_like(V[..., 0, :2]), torch.where(detV < 0, -1.0, 1.0)[..., None]], dim=-1)
     V = V * col_sign[..., None, :]
     sigma = torch.sqrt(torch.clamp(lam, min=0.0))
     floor = torch.clamp(1e-9 * sigma[..., :1], min=1e-20)
@@ -241,12 +239,36 @@ def rotation_from_scatter(S: torch.Tensor):
     return R_star, D, V
 
 
+def set_slice(v: torch.Tensor, x: torch.Tensor, sl: slice) -> torch.Tensor:
+    """Copy of `v` with v[..., sl] = x, leading dims broadcast. Out of
+    place, so that it runs under torch.func.vmap with `x` batched and `v`
+    not (an in-place write into an unbatched tensor cannot take a batched
+    value)."""
+    batch = torch.broadcast_shapes(v.shape[:-1], x.shape[:-1])
+    v = v.expand(batch + v.shape[-1:])
+    x = x.expand(batch + x.shape[-1:])
+    return torch.slice_scatter(v, x, dim=-1, start=sl.start, end=sl.stop)
+
+
+def set_block(M: torch.Tensor, block: torch.Tensor, rows: slice, cols: slice) -> torch.Tensor:
+    """Copy of `M` with M[..., rows, cols] = block, leading dims broadcast
+    (out of place, as set_slice)."""
+    batch = torch.broadcast_shapes(M.shape[:-2], block.shape[:-2])
+    M = M.expand(batch + M.shape[-2:])
+    band = set_slice(M[..., rows, :], block.expand(batch + block.shape[-2:]), cols)
+    return torch.slice_scatter(M, band, dim=-2, start=rows.start, end=rows.stop)
+
+
+def add_block(M: torch.Tensor, block: torch.Tensor, rows: slice, cols: slice) -> torch.Tensor:
+    """Copy of `M` with `block` added to M[..., rows, cols] (the entries
+    outside keep their bits)."""
+    return set_block(M, M[..., rows, cols] + block, rows, cols)
+
+
 def embed_block(block: torch.Tensor, vec: torch.Tensor, sl: slice, d: int = C.D_Z):
     """Zero (..., d, d) / (..., d) factor with `block`/`vec` in the slice
     `sl` (leading batch dims broadcast)."""
-    batch = torch.broadcast_shapes(block.shape[:-2], vec.shape[:-1])
-    L = block.new_zeros(batch + (d, d))
-    h = vec.new_zeros(batch + (d,))
-    L[..., sl, sl] = block
-    h[..., sl] = vec
-    return L, h
+    L = set_block(block.new_zeros(d, d), block, sl, sl)
+    h = set_slice(vec.new_zeros(d), vec, sl)
+    batch = torch.broadcast_shapes(L.shape[:-2], h.shape[:-1])
+    return L.expand(batch + (d, d)), h.expand(batch + (d,))

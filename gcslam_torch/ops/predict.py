@@ -108,9 +108,8 @@ def predict_imu(
     diffusion_coeff = (1.0 - exp_factor) / (2.0 * lambda_ou + torch.finfo(cov_prev.dtype).eps)
     cov_ou = exp_factor * cov_prev + diffusion_coeff * Q
 
-    J = linalg.eye(C.D_Z, cov_ou).clone()
-    J[0:3, 6:9] = dt_sec * linalg.eye(3, cov_ou)
-    cov_pred = J @ cov_ou @ J.T
+    J = linalg.set_block(linalg.eye(C.D_Z, cov_ou), dt_sec * linalg.eye(3, cov_ou), C.IDX_TRANS, C.IDX_VEL)
+    cov_pred = J @ cov_ou @ J.transpose(-1, -2)
 
     dt_i = torch.clamp(dt_int, min=0.0) + C.EPS_MASS
     add = torch.zeros_like(cov_pred[..., :9, :9])

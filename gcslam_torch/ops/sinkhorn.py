@@ -9,6 +9,13 @@ n_iters iterations, one thread-block cluster per problem (`cluster_layout`)
 kernel is compiled with nvcc on first use into csrc/build/ (a plain C
 interface loaded with ctypes, ops/cuda_build.py) from the source in this
 checkout.
+
+The function is the custom operator `gcslam::sinkhorn_unbalanced`, with
+the plain loop as its CPU kernel and the launch as its CUDA kernel, and a
+vmap rule: under torch.func.vmap (the replay sweep's run axis,
+parallel/sweep.py) every vmapped leading dim folds into the kernel's B
+axis, so R runs of (N, K) problems, or of (K_HYP, N, K), are one launch of
+B = R or R * K_HYP problems.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ MAX_K = 32
 MAX_CLUSTER = 8  # blocks per problem: the portable cluster size
 ROWS_PER_BLOCK = 128  # rows per block the launcher aims at before the cluster is full
 MAX_N = 2048  # 8 blocks x 256 threads x one register-resident row per thread
+MAX_GRID_X = 2**31 - 1  # the launcher's grid is B x (blocks per cluster) blocks along x
 
 _ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_double] * 3 + [ctypes.c_int, ctypes.c_void_p]
 _INT_P = ctypes.POINTER(ctypes.c_int)
@@ -93,17 +101,23 @@ def _check(C, a, b):
         raise TypeError(f"C, a, b must share float32 or float64, got {C.dtype}, {a.dtype}, {b.dtype}")
     if not (1 <= K <= MAX_K and 1 <= N <= MAX_N):
         raise ValueError(f"kernel supports 1 <= N <= {MAX_N}, 1 <= K <= {MAX_K}; got N={N}, K={K}")
+    B = C.shape[0] if C.dim() == 3 else 1
+    if B * cluster_layout(N)[0] > MAX_GRID_X:
+        raise ValueError(f"B={B} problems of N={N} rows exceed the launch grid ({MAX_GRID_X} blocks)")
     if not (C.is_contiguous() and a.is_contiguous() and b.is_contiguous()):
         raise ValueError("C, a, b must be contiguous")
     if not (C.is_cuda and a.device == C.device and b.device == C.device):
         raise ValueError("C, a, b must lie on one CUDA device")
 
 
-def sinkhorn_unbalanced(C, a, b, epsilon, tau_a, tau_b, n_iters: int):
-    """pi = diag(u) exp(-C/eps) diag(v) after n_iters unbalanced Sinkhorn
-    iterations; the kernel on CUDA tensors, the plain loop on CPU tensors."""
-    if C.device.type == "cpu":
-        return sinkhorn_unbalanced_reference(C, a, b, epsilon, tau_a, tau_b, n_iters)
+@torch.library.custom_op("gcslam::sinkhorn_unbalanced", mutates_args=(), device_types="cpu")
+def _sinkhorn_op(C: torch.Tensor, a: torch.Tensor, b: torch.Tensor, epsilon: float, tau_a: float,
+                 tau_b: float, n_iters: int) -> torch.Tensor:
+    return sinkhorn_unbalanced_reference(C, a, b, epsilon, tau_a, tau_b, n_iters)
+
+
+@_sinkhorn_op.register_kernel("cuda")
+def _sinkhorn_launch(C, a, b, epsilon, tau_a, tau_b, n_iters):
     _check(C, a, b)
     lib = _KERNEL.lib()
     eps, ua, vb = _scalars(epsilon, tau_a, tau_b)
@@ -118,4 +132,30 @@ def sinkhorn_unbalanced(C, a, b, epsilon, tau_a, tau_b, n_iters: int):
     if err != 0:
         raise RuntimeError(f"sinkhorn kernel launch failed: cudaError_t {err}")
     COUNTER.launches += 1
+    COUNTER.shapes.add((B, N, K))
     return out
+
+
+@_sinkhorn_op.register_vmap
+def _sinkhorn_vmap(info, in_dims, C, a, b, epsilon, tau_a, tau_b, n_iters):
+    """Fold the vmapped dim and every leading problem dim into one B axis:
+    one call (on CUDA one launch) for all problems of all runs."""
+    R = info.batch_size
+
+    def front(x, d):
+        return x.expand((R,) + x.shape) if d is None else x.movedim(d, 0)
+
+    C, a, b = front(C, in_dims[0]), front(a, in_dims[1]), front(b, in_dims[2])
+    N, K = C.shape[-2:]
+    lead = torch.broadcast_shapes(C.shape[:-2], a.shape[:-1], b.shape[:-1])
+    out = _sinkhorn_op(C.expand(lead + (N, K)).reshape(-1, N, K).contiguous(),
+                       a.expand(lead + (N,)).reshape(-1, N).contiguous(),
+                       b.expand(lead + (K,)).reshape(-1, K).contiguous(),
+                       epsilon, tau_a, tau_b, n_iters)
+    return out.reshape(lead + (N, K)), 0
+
+
+def sinkhorn_unbalanced(C, a, b, epsilon, tau_a, tau_b, n_iters: int):
+    """pi = diag(u) exp(-C/eps) diag(v) after n_iters unbalanced Sinkhorn
+    iterations; the kernel on CUDA tensors, the plain loop on CPU tensors."""
+    return _sinkhorn_op(C, a, b, float(epsilon), float(tau_a), float(tau_b), int(n_iters))

@@ -131,6 +131,47 @@ def test_per_hypothesis_run_bag_on_cuda_matches_cpu(cuda):
     np.testing.assert_allclose(gpu.pose.cpu().numpy(), cpu.pose.numpy(), rtol=0, atol=1e-5)
 
 
+@pytest.mark.parametrize("lead", [(3,), (2, 4)], ids=["runs", "runs_x_hyps"])
+def test_vmapped_kernel_is_one_launch_equal_to_per_problem_launches(cuda, lead):
+    """Under torch.func.vmap the custom op's rule folds (R, N, K) and
+    (R, K_HYP, N, K) into one launch of B = R or R * K_HYP problems; each
+    problem is its own cluster, so the result equals per-problem launches
+    bit for bit."""
+    B = int(np.prod(lead))
+    C, a, b, _ = _case(B, 1024, 8, seed=5)
+    Cm = torch.as_tensor(C, device=cuda).reshape(lead + (1024, 8))
+    am = torch.as_tensor(a, device=cuda).reshape(lead + (1024,))
+    bv = torch.as_tensor(b[0], device=cuda)
+    f = lambda c, x: sinkhorn.sinkhorn_unbalanced(c, x, bv, *ARGS)  # noqa: E731
+    for _ in lead:
+        f = torch.func.vmap(f)
+    sinkhorn.COUNTER.reset()
+    out = f(Cm, am)
+    assert sinkhorn.COUNTER.launches == 1 and sinkhorn.COUNTER.shapes == {(B, 1024, 8)}
+    per = torch.stack([sinkhorn.sinkhorn_unbalanced(c, x, bv, *ARGS)
+                       for c, x in zip(Cm.reshape(B, 1024, 8), am.reshape(B, 1024))])
+    assert sinkhorn.COUNTER.launches == 1 + B
+    assert torch.equal(out, per.reshape(out.shape))
+
+
+def test_sweep_on_cuda_equals_run_bag_per_run(cuda):
+    """parallel/sweep at R = 2, map on, 3 scans: each run equals its
+    run_bag (batched and single-run reductions round apart at ~1e-16 on
+    the CPU), with one Sinkhorn launch per GN round for both runs."""
+    from gcslam_torch.parallel import sweep
+
+    runs = [generate(SyntheticConfig(n_scans=3, n_points=512, seed=s), device="cpu").batches for s in range(2)]
+    cfg = PipelineConfig(**SMALL)
+    sinkhorn.COUNTER.reset()
+    _, outs, aggs = sweep.run_sweep(runs, cfg, device=cuda)
+    assert sinkhorn.COUNTER.launches == cfg.map_icp_iters * 3
+    assert sinkhorn.COUNTER.shapes == {(2, cfg.n_surfel, cfg.k_assoc)}
+    for r, batches in enumerate(runs):
+        _, single = runner.run_bag(batches, cfg, device=cuda)
+        np.testing.assert_allclose(outs.pose[r].cpu().numpy(), single.pose.cpu().numpy(), rtol=0, atol=1e-8)
+    assert torch.isfinite(aggs[-1]["pose_spread"]) and float(aggs[-1]["pose_spread"]) > 0
+
+
 def _splats(P, H, W, device, seed=11):
     """Screen splats of a seeded random scene (tests/test_rendering_pallas.py's
     recipe, scaled to the image)."""

@@ -25,6 +25,8 @@ def test_port_imports_without_jax():
         "import gcslam_torch.eval.run, gcslam_torch.models.manifest, gcslam_torch.outputs.dashboard\n"
         "import gcslam_torch.outputs.live_view, gcslam_torch.outputs.rerun_export, gcslam_torch.ops.bev\n"
         "import gcslam_torch.tools.make_synth_bag, gcslam_torch.tools.rehearse, gcslam_torch.tools.precision_compare\n"
+        "import gcslam_torch.parallel.sweep, gcslam_torch.tools.attribute_step, gcslam_torch.tools.ablate_gn_shared\n"
+        "import gcslam_torch.utils.cuda_profile\n"
         "from gcslam_torch.models.runner import run_scan, run_stream, run_chunked, DeadEndMonitor\n"
         "from gcslam_torch.frontend.camera import extract_camera_features_native\n"
         "from gcslam_torch.models.config import config_from_file\n"
