@@ -1,6 +1,7 @@
-"""Smoke test of the PyTorch/CUDA port (gcslam_torch) on one NVIDIA GPU.
+"""Smoke test of the PyTorch/CUDA port (gcslam_torch) on NVIDIA GPUs.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                 # every phase; one card is enough
+    python3 chip_smoke.py --phases 1,2,15 # the device, the kernels and the mesh alone
 
 Phases, in order; any failure exits non-zero before the result line:
   1. device: a CUDA card is required (no CPU fallback); prints its name and
@@ -98,7 +99,21 @@ Phases, in order; any failure exits non-zero before the result line:
      (launch calls, device busy share; 3 scans at R = 8, one at the
      others); the per-hypothesis sweep (map_gn_shared=False) at R = 2 over
      10 scans, every launch on (2 x K_HYP, 1024, 8); two R = 2 sweeps
-     bit-equal.
+     bit-equal;
+ 15. the sweep over a device mesh (parallel/mesh.py), its ranks spawned by
+     mesh.run_ranks: on one NCCL rank, the (run=1) mesh over flagship
+     seeds 0-1 x 10 scans bit-equal to run_sweep at R = 2, exactly 2
+     Sinkhorn launches a scan on (2, 1024, 8) and one run-axis collective a
+     scan, and the sharded checkpoint (save after scan 5, restore, continue)
+     bit-equal; on two gloo ranks sharing the card, where gloo's all_gather
+     takes CUDA tensors, the per-hypothesis (run=1, hyp=2) and the
+     (run=1, map=2) families over 5 scans against run_sweep (else a line
+     says they ran only on several cards); with n >= 2 cards, one NCCL
+     rank each, phase 14's 8 seeds x 50 scans on (run=n), on
+     (run=n/2, hyp=2) per hypothesis and on (run=n/2, map=2): every run
+     under the ATE gate and, with the shared GN chain, within 1e-3 m of
+     phase 14's run (per hypothesis within 0.05 m), 2 Sinkhorn launches a
+     scan on every rank, ms/scan after 2 scans and collectives per scan.
 Before the last line it prints {"paths": ...} and {"kernels": [...]}, one
 kernel record per instance the main paths launch (dtype and shape), and
 fails if one was never launched; the last line is {"ok": true, "device":
@@ -244,6 +259,21 @@ SWEEP_SCANS = 10  # timed scans at each R, the cross-run witness, the per-hypoth
 SWEEP_PROFILE_SCANS = 3  # profiled scans at R = 8 (one at the other R)
 SWEEP_RUN0_ATE_BOUND_M = 1e-3  # |ATE of sweep run 0 - ATE of phase 3's run_bag|
 SWEEP_SEEDS_DIFFER_M = 1e-4
+# Phase 15: the sweep over a device mesh (parallel/mesh.py), ranks spawned
+# by mesh.run_ranks, one NCCL rank per card
+MESH_ONE_CARD_RUNS = 2  # flagship seeds 0-1 on the (run=1) mesh, bit-equal to run_sweep at R = 2
+MESH_ONE_CARD_SCANS = 10
+MESH_CKPT_AT = 5  # the sharded checkpoint: saved after this many scans, resumed, continued
+MESH_SHARED_CARD_SCANS = 5  # the 2-D families on two gloo ranks sharing the one card
+# max |d pose| of a family against run_sweep, without a mesh, of the same
+# runs where the batch shapes differ (hypothesis or tile blocks); the run
+# axis alone keeps every shape and is held bit-equal
+MESH_POSE_BOUND_M = 1e-9
+MESH_WARMUP = 2  # scans before the timed ones of each family on >= 2 cards
+MESH_REF_SCANS = 10  # each rank's block of runs replayed without a mesh, held against the family's first scans
+MESH_PROFILE_SCANS = 2  # profiled on every rank after each family's run (CUDA activity alone)
+MESH_ATE_BOUND_M = SWEEP_RUN0_ATE_BOUND_M  # run r of a shared-GN family against phase 14's run r
+MESH_TIMEOUT_S = 600
 # Phase 13: the f32-belief flagship (the JAX package's production mode,
 # BENCH_r05.json), in a child process with GCSLAM_BELIEF_DTYPE=float32
 F32_ENV = {"GCSLAM_BELIEF_DTYPE": "float32"}
@@ -375,9 +405,12 @@ def sinkhorn_bound(B: int, N: int, K: int, n_iters: int, itemsize: int, peak: fl
 MAIN_SINKHORN = {  # the main paths' instances: (dtype, B, N) -> the phases that launch it
     ("float64", 1, 1024): "flagship, live modes, options, canonical camera-on bag (512 surfels + 512 features), "
                           "sweep R = 1",
-    ("float64", 2, 1024): "sweep R = 2 (shared GN: one problem a run)",
-    ("float64", 4, 1024): "per hypothesis; sweep R = 4",
-    ("float64", 8, 1024): "sweep R = 8; per-hypothesis sweep R = 2 (2 runs x K_HYP)",
+    ("float64", 2, 1024): "sweep R = 2 (shared GN: one problem a run); mesh (run=1) at R = 2; "
+                          "(run=1, map=2) on a shared card; four cards: (run=4) at R = 8",
+    ("float64", 4, 1024): "per hypothesis; sweep R = 4; mesh (run=1, hyp=2) on a shared card (2 runs x 2 "
+                          "hypotheses); four cards: (run=2, map=2) at R = 8",
+    ("float64", 8, 1024): "sweep R = 8; per-hypothesis sweep R = 2 (2 runs x K_HYP); four cards: (run=2, hyp=2) "
+                          "per hypothesis (4 runs x 2 hypotheses)",
     ("float64", 1, 1536): "camera path",
     ("float64", 1, 512): "bag replay, camera off",
     ("float32", 1, 1024): "f32-belief flagship",
@@ -1321,6 +1354,320 @@ def phase_sweep(device, run, out_flag, ate_flag):
               "scaling": {str(R): v for R, v in scaling.items()},
               "per_hypothesis_r2": {"ms_per_scan_cold": ms_h, "n_scans": SWEEP_SCANS, "sinkhorn_launches": n_h,
                                     "sinkhorn_shape": [B_h, N, K]}}
+    return record, launches, poses
+
+
+def _mesh_counters_reset() -> None:
+    from gcslam_torch.ops import collectives, sinkhorn
+
+    sinkhorn.COUNTER.reset()
+    collectives.COUNTER.clear()
+
+
+def _mesh_family_record(n_scans: int, seconds: float, warm_seconds=None, warm_scans=None):
+    """A rank's counters after a family's run: Sinkhorn launches and
+    shapes, collectives by axis, ms/scan."""
+    from gcslam_torch.ops import collectives, sinkhorn
+
+    rec = {"sinkhorn_launches": sinkhorn.COUNTER.launches, "sinkhorn_shapes": sorted(sinkhorn.COUNTER.shapes),
+           "collectives": dict(collectives.COUNTER), "n_scans": n_scans,
+           "ms_per_scan_cold": 1e3 * seconds / n_scans}
+    if warm_seconds is not None:
+        rec["ms_per_scan"] = 1e3 * warm_seconds / warm_scans
+    return rec
+
+
+def mesh_one_card_rank(device) -> dict:
+    """Phase 15 on one NCCL rank: the (run=1) mesh over MESH_ONE_CARD_RUNS
+    flagship seeds, against run_sweep without a mesh, and the sharded
+    checkpoint."""
+    import torch
+    from gcslam_torch.frontend.synthetic import SyntheticConfig, generate
+    from gcslam_torch.models.config import PipelineConfig
+    from gcslam_torch.parallel import mesh as mesh_mod
+    from gcslam_torch.parallel import sweep
+    from gcslam_torch.utils import checkpoint as ckpt
+
+    cfg = PipelineConfig()
+    runs = [generate(SyntheticConfig(n_scans=MESH_ONE_CARD_SCANS, n_points=N_POINTS, seed=s), device=device).batches
+            for s in range(MESH_ONE_CARD_RUNS)]
+    mesh = mesh_mod.make_mesh(1)
+    _mesh_counters_reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, outs, _ = sweep.run_sweep(runs, cfg, mesh=mesh)
+    torch.cuda.synchronize()
+    rec = _mesh_family_record(MESH_ONE_CARD_SCANS, time.perf_counter() - t0)
+    _, plain, _ = sweep.run_sweep(runs, cfg, device=device)
+
+    first = [r[:MESH_CKPT_AT] for r in runs]
+    rest = [r[MESH_CKPT_AT:] for r in runs]
+    states, out_first, _ = sweep.run_sweep(first, cfg, mesh=mesh)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    path = os.path.abspath(os.path.join(OUT_DIR, "mesh_ckpt"))
+    ckpt.save_state_sharded(path, states, mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, cont, _ = sweep.run_sweep(rest, cfg, states=states, mesh=mesh)
+    torch.cuda.synchronize()
+    rec["ms_per_scan"] = 1e3 * (time.perf_counter() - t0) / len(rest[0])
+    like = sweep.shard_states(sweep.batched_init_state(cfg, MESH_ONE_CARD_RUNS, device=device), mesh)
+    resumed = ckpt.load_state_sharded(path, like, mesh)
+    restored_equal = all(torch.equal(a, b) for a, b in zip(ckpt.state_leaves(resumed), ckpt.state_leaves(states)))
+    _, res, _ = sweep.run_sweep(rest, cfg, states=resumed, mesh=mesh)
+    return {**rec, "pose": outs.pose.cpu().numpy(), "plain_pose": plain.pose.cpu().numpy(),
+            "split_pose": torch.cat([out_first.pose, cont.pose], dim=1).cpu().numpy(),
+            "resumed_pose": res.pose.cpu().numpy(), "cont_pose": cont.pose.cpu().numpy(),
+            "restored_equal": restored_equal}
+
+
+def mesh_shared_card_rank(device) -> dict:
+    """Phase 15 on two gloo ranks sharing the one card: gloo's all_gather
+    on CUDA tensors, and then the (run=1, hyp=2) per-hypothesis and
+    (run=1, map=2) families against run_sweep without a mesh."""
+    import torch
+    from gcslam_torch.frontend.synthetic import SyntheticConfig, generate
+    from gcslam_torch.models.config import PipelineConfig
+    from gcslam_torch.ops import collectives
+    from gcslam_torch.parallel import mesh as mesh_mod
+    from gcslam_torch.parallel import sweep
+
+    probe = mesh_mod.make_mesh(2).shard("run")
+    got = collectives.all_gather([torch.full((2,), float(probe.index), device=device)], probe)
+    if not torch.equal(got[0].cpu(), torch.tensor([[0.0, 0.0], [1.0, 1.0]])):
+        raise AssertionError(f"gloo all_gather on CUDA tensors gave {got[0].tolist()}")
+    runs = [generate(SyntheticConfig(n_scans=MESH_SHARED_CARD_SCANS, n_points=N_POINTS, seed=s), device=device).batches
+            for s in range(MESH_ONE_CARD_RUNS)]
+    out = {}
+    for name, mesh, cfg in (("hyp", mesh_mod.make_mesh_2d(1, 2), PipelineConfig(map_gn_shared=False)),
+                            ("map", mesh_mod.make_mesh_map(1, 2), PipelineConfig())):
+        _mesh_counters_reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, outs, _ = sweep.run_sweep(runs, cfg, mesh=mesh)
+        torch.cuda.synchronize()
+        rec = _mesh_family_record(MESH_SHARED_CARD_SCANS, time.perf_counter() - t0)
+        _, plain, _ = sweep.run_sweep(runs, cfg, device=device)
+        out[name] = {**rec, "mesh": dict(mesh.shape), "pose": outs.pose.cpu().numpy(),
+                     "plain_pose": plain.pose.cpu().numpy()}
+    return out
+
+
+def mesh_cards_rank(device, n_cards: int) -> dict:
+    """Phase 15 on n_cards NCCL ranks, one a card: the SWEEP_RUNS flagship
+    seeds over N_SCANS scans on (run=n), (run=n/2, hyp=2) per hypothesis
+    and (run=n/2, map=2); MESH_WARMUP scans, then the timed rest. After
+    each family, this rank's block of runs over MESH_REF_SCANS scans again
+    without a mesh at the family's config (split at MESH_WARMUP the same
+    way), the reference its share of the family's poses is held to."""
+    import torch
+    from gcslam_torch.frontend.synthetic import SyntheticConfig, generate
+    from gcslam_torch.models.config import PipelineConfig
+    from gcslam_torch.parallel import mesh as mesh_mod
+    from gcslam_torch.parallel import sweep
+    from gcslam_torch.utils.cuda_profile import profile_record
+
+    runs = [generate(SyntheticConfig(n_scans=N_SCANS, n_points=N_POINTS, seed=s), device=device).batches
+            for s in range(SWEEP_RUNS)]
+    out = {}
+    for name, mesh, cfg in (("run", mesh_mod.make_mesh(n_cards), PipelineConfig()),
+                            ("hyp", mesh_mod.make_mesh_2d(n_cards // 2, 2), PipelineConfig(map_gn_shared=False)),
+                            ("map", mesh_mod.make_mesh_map(n_cards // 2, 2), PipelineConfig())):
+        _mesh_counters_reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        states, warm, _ = sweep.run_sweep([r[:MESH_WARMUP] for r in runs], cfg, mesh=mesh)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        _, rest, aggs = sweep.run_sweep([r[MESH_WARMUP:] for r in runs], cfg, states=states, mesh=mesh)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        rec = _mesh_family_record(N_SCANS, t2 - t0, t2 - t1, N_SCANS - MESH_WARMUP)
+        # after the main path's counters: the scans after the warm-up again, profiled
+        prof = profile_record(lambda: sweep.run_sweep([r[MESH_WARMUP:MESH_WARMUP + MESH_PROFILE_SCANS] for r in runs],
+                                                      cfg, states=states, mesh=mesh),
+                              MESH_PROFILE_SCANS, activities=("cuda",))
+        lo, hi = mesh.block("run", SWEEP_RUNS)
+        block = [r[:MESH_REF_SCANS] for r in runs[lo:hi]]
+        ref_states, ref_warm, _ = sweep.run_sweep([r[:MESH_WARMUP] for r in block], cfg, device=device)
+        _, ref_rest, _ = sweep.run_sweep([r[MESH_WARMUP:] for r in block], cfg, states=ref_states, device=device)
+        out[name] = {**rec, "mesh": dict(mesh.shape), "pose": torch.cat([warm.pose, rest.pose], dim=1).cpu().numpy(),
+                     "final_pose_spread_m": float(aggs[-1]["pose_spread"]), "profile": prof, "ref_block": (lo, hi),
+                     "ref_pose": torch.cat([ref_warm.pose, ref_rest.pose], dim=1).cpu().numpy()}
+    return out
+
+
+def _sinkhorn_check(label: str, rec: dict, n_scans: int, shape) -> None:
+    want = 2 * n_scans  # map_icp_iters at PipelineConfig()
+    if rec["sinkhorn_launches"] != want or rec["sinkhorn_shapes"] != [tuple(shape)]:
+        fail(f"mesh {label}: {rec['sinkhorn_launches']} sinkhorn launches on {rec['sinkhorn_shapes']}, expected "
+             f"{want} on {tuple(shape)}")
+
+
+def _collectives_per_scan(rec: dict, n_sweeps: int = 1) -> dict:
+    """Collectives a scan by axis, without the one gather of the outputs at
+    the end of each of the n_sweeps run_sweep calls."""
+    return {axis: (n - (n_sweeps if axis == "run" else 0)) / rec["n_scans"]
+            for axis, n in sorted(rec["collectives"].items())}
+
+
+def phase_mesh(device, sweep_poses):
+    """The sweep over a device mesh: the (run=1) NCCL mesh with the sharded
+    checkpoint, the 2-D families on two gloo ranks sharing the card, and
+    with >= 2 cards the three families over all of them. Returns the
+    record and the Sinkhorn launches by instance (dtype, B, N)."""
+    import torch
+    from gcslam_torch.eval.ate_rpe import compute_ate
+    from gcslam_torch.frontend.synthetic import SyntheticConfig, generate
+    from gcslam_torch.models.config import PipelineConfig
+    from gcslam_torch import constants as C
+    from gcslam_torch.parallel import mesh as mesh_mod
+    from gcslam_torch.parallel import sweep
+
+    K, N = PipelineConfig().k_assoc, PipelineConfig().n_surfel
+    t_phase = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    launches, record = {}, {"cards": n_cards}
+
+    def count(key, n):
+        launches[key] = launches.get(key, 0) + n
+
+    # (run=1): one NCCL rank, bit-equal to run_sweep at R = 2 (the same shapes)
+    t0 = time.perf_counter()
+    one = mesh_mod.run_ranks(mesh_one_card_rank, 1, "cuda", timeout=MESH_TIMEOUT_S)[0]
+    R = MESH_ONE_CARD_RUNS
+    _sinkhorn_check("(run=1)", one, MESH_ONE_CARD_SCANS, (R, N, K))
+    count(("float64", R, N), one["sinkhorn_launches"])
+    want = {"run": MESH_ONE_CARD_SCANS + 1}  # the aggregates' pose gather a scan, the outputs' at the end
+    if one["collectives"] != want:
+        fail(f"mesh (run=1): collectives {one['collectives']}, expected {want}")
+    if not np.all(np.isfinite(one["pose"])) or one["pose"].shape != (R, MESH_ONE_CARD_SCANS, 6):
+        fail(f"mesh (run=1): poses of shape {one['pose'].shape}, or non-finite")
+    if not np.array_equal(one["pose"], one["plain_pose"]):
+        fail(f"mesh (run=1): differs from run_sweep at R = {R} by {np.abs(one['pose'] - one['plain_pose']).max():.3e}")
+    if not np.array_equal(one["split_pose"], one["pose"]):
+        fail("mesh (run=1): the run split at the checkpoint differs from the whole run")
+    if not one["restored_equal"] or not np.array_equal(one["resumed_pose"], one["cont_pose"]):
+        fail(f"mesh checkpoint: restored leaves equal {one['restored_equal']}, resumed run differs by "
+             f"{np.abs(one['resumed_pose'] - one['cont_pose']).max():.3e}")
+    print(f"mesh (run=1) on 1 NCCL rank: {R} flagship runs x {MESH_ONE_CARD_SCANS} scans bit-equal to run_sweep at "
+          f"R = {R}; {one['ms_per_scan_cold']:.2f} ms/scan cold, {one['ms_per_scan']:.2f} ms/scan over the "
+          f"{MESH_ONE_CARD_SCANS - MESH_CKPT_AT} scans after the checkpoint; "
+          f"{one['sinkhorn_launches'] / MESH_ONE_CARD_SCANS:.0f} sinkhorn launches/scan on {(R, N, K)}; "
+          f"collectives {one['collectives']}; sharded checkpoint after scan "
+          f"{MESH_CKPT_AT}: restored bit-equal, resumed run bit-equal "
+          f"[{time.perf_counter() - t0:.1f} s with the rank's start]")
+    record["run1"] = {k: one[k] for k in ("ms_per_scan_cold", "ms_per_scan", "sinkhorn_launches", "collectives")}
+    record["run1"].update(runs=R, n_scans=MESH_ONE_CARD_SCANS, bit_equal_to_run_sweep=True, checkpoint_bit_equal=True)
+
+    # the 2-D families on two gloo ranks sharing the card
+    t0 = time.perf_counter()
+    shared = mesh_mod.run_ranks(mesh_shared_card_rank, 2, "cuda", timeout=MESH_TIMEOUT_S, backend="gloo")
+    record["shared_card"] = {}
+    for name, B in (("hyp", R * C.K_HYP // 2), ("map", R)):
+        fam = shared[0][name]
+        _sinkhorn_check(f"{fam['mesh']} on a shared card", fam, MESH_SHARED_CARD_SCANS, (B, N, K))
+        count(("float64", B, N), sum(s[name]["sinkhorn_launches"] for s in shared))
+        d = float(np.abs(fam["pose"] - fam["plain_pose"]).max())
+        if not np.all(np.isfinite(fam["pose"])) or not d <= MESH_POSE_BOUND_M:
+            fail(f"mesh {fam['mesh']} on a shared card: max |d pose| {d:.3e} from run_sweep (bound {MESH_POSE_BOUND_M})")
+        if not np.array_equal(shared[1][name]["pose"], fam["pose"]):
+            fail(f"mesh {fam['mesh']} on a shared card: the ranks gathered different poses")
+        bit_equal = bool(np.array_equal(fam["pose"], fam["plain_pose"]))
+        print(f"mesh {fam['mesh']} on 2 gloo ranks sharing the card: {R} runs x {MESH_SHARED_CARD_SCANS} scans, "
+              f"max |d pose| {d:.3e} from run_sweep (bit-equal {bit_equal}); {fam['ms_per_scan_cold']:.2f} ms/scan "
+              f"cold; sinkhorn on {(B, N, K)}; collectives/scan {_collectives_per_scan(fam)}")
+        record["shared_card"][name] = {"mesh": fam["mesh"], "max_abs_dpose": d, "bit_equal": bit_equal,
+                                       "ms_per_scan_cold": fam["ms_per_scan_cold"],
+                                       "collectives": fam["collectives"], "sinkhorn_shape": [B, N, K]}
+    print(f"[mesh on one card: {time.perf_counter() - t_phase:.1f} s into phase 15]")
+
+    if n_cards < 2:
+        return record, launches
+    if SWEEP_RUNS % n_cards:
+        fail(f"mesh: {n_cards} cards do not divide the {SWEEP_RUNS} runs")
+    worlds = [generate(SyntheticConfig(n_scans=N_SCANS, n_points=N_POINTS, seed=s), device=device)
+              for s in range(SWEEP_RUNS)]
+
+    def one_card_sweep():
+        """All SWEEP_RUNS runs on card 0 without a mesh (phase 14's main
+        path): MESH_WARMUP scans, then the timed rest; (poses, ms/scan)."""
+        runs = [w.batches for w in worlds]
+        states, warm, _ = sweep.run_sweep([r[:MESH_WARMUP] for r in runs], PipelineConfig(), device=device)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, rest, _ = sweep.run_sweep([r[MESH_WARMUP:] for r in runs], PipelineConfig(), states=states, device=device)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t) / (N_SCANS - MESH_WARMUP)
+        return torch.cat([warm.pose, rest.pose], dim=1).cpu().numpy(), ms
+
+    # one card at R = SWEEP_RUNS before and after the families (in turns, in one call)
+    one_poses, one_ms_before = one_card_sweep()
+    if sweep_poses is None:  # phase 14 did not run: the same path here is the reference
+        sweep_poses = one_poses
+    ref_ate = [compute_ate(p, w.gt_poses, align="initial")["translation"]["rmse"] for p, w in zip(sweep_poses, worlds)]
+    t0 = time.perf_counter()
+    ranks = mesh_mod.run_ranks(mesh_cards_rank, n_cards, "cuda", n_cards, timeout=MESH_TIMEOUT_S)
+    print(f"mesh: {n_cards} NCCL ranks ran three families in {time.perf_counter() - t0:.1f} s (with their start)")
+    _, one_ms_after = one_card_sweep()
+    print(f"mesh: one card without a mesh at R = {SWEEP_RUNS}: {one_ms_before:.2f} ms/scan before the families, "
+          f"{one_ms_after:.2f} after ({N_SCANS - MESH_WARMUP} scans after {MESH_WARMUP})")
+    record["one_card_r8_ms_per_scan_before_after"] = [one_ms_before, one_ms_after]
+    record["families"] = {}
+    for name in ("run", "hyp", "map"):
+        fam = ranks[0][name]
+        n_run = fam["mesh"]["run"]
+        R_l = SWEEP_RUNS // n_run
+        B = R_l * (C.K_HYP // fam["mesh"]["hyp"] if name == "hyp" else 1)
+        for r, rank in enumerate(ranks):
+            _sinkhorn_check(f"{fam['mesh']} rank {r}", rank[name], N_SCANS, (B, N, K))
+            if not np.array_equal(rank[name]["pose"], fam["pose"]):
+                fail(f"mesh {fam['mesh']}: rank {r} gathered other poses than rank 0")
+        count(("float64", B, N), sum(rank[name]["sinkhorn_launches"] for rank in ranks))
+        poses = fam["pose"]
+        if poses.shape != (SWEEP_RUNS, N_SCANS, 6) or not np.all(np.isfinite(poses)):
+            fail(f"mesh {fam['mesh']}: poses of shape {poses.shape}, or non-finite")
+        # each rank's block of runs against run_sweep of that block without a mesh, at the family's config
+        d_ref = 0.0
+        for r, rank in enumerate(ranks):
+            lo, hi = rank[name]["ref_block"]
+            mine, ref = poses[lo:hi, :MESH_REF_SCANS], rank[name]["ref_pose"]
+            if name == "run" and not np.array_equal(mine, ref):
+                fail(f"mesh {fam['mesh']}: runs {lo}-{hi - 1} differ from run_sweep of rank {r}'s block by "
+                     f"{np.abs(mine - ref).max():.3e} (the same shapes: bit-equal expected)")
+            d_ref = max(d_ref, float(np.abs(mine - ref).max()))
+        if not d_ref <= MESH_POSE_BOUND_M:
+            fail(f"mesh {fam['mesh']}: max |d pose| {d_ref:.3e} from run_sweep of each rank's block (bound "
+                 f"{MESH_POSE_BOUND_M})")
+        ates = [compute_ate(p, w.gt_poses, align="initial") for p, w in zip(poses, worlds)]
+        for r, ate in enumerate(ates):
+            trans, rot = ate["translation"]["rmse"], ate["rotation_deg"]["rmse"]
+            if trans > GATE_ATE_TRANS_RMSE_M or rot > GATE_ATE_ROT_RMSE_DEG:
+                fail(f"mesh {fam['mesh']} run {r} ATE gate: {trans:.4f} m / {rot:.4f} deg")
+        d_ate = [abs(a["translation"]["rmse"] - b) for a, b in zip(ates, ref_ate)]
+        bound_m = PER_HYP_ATE_BOUND_M if name == "hyp" else MESH_ATE_BOUND_M
+        if max(d_ate) > bound_m:
+            fail(f"mesh {fam['mesh']}: a run's ATE {max(d_ate):.3e} m from phase 14's (bound {bound_m})")
+        ms = [rank[name]["ms_per_scan"] for rank in ranks]
+        per_scan = _collectives_per_scan(fam, n_sweeps=2)
+        print(f"mesh {fam['mesh']} on {n_cards} NCCL ranks{' (per hypothesis)' if name == 'hyp' else ''}: "
+              f"{SWEEP_RUNS} flagship runs x {N_SCANS} scans, max |d pose| {d_ref:.3e} over the first {MESH_REF_SCANS} "
+              f"from run_sweep of each rank's block of runs; {ms[0]:.2f} ms/scan (rank 0; slowest rank "
+              f"{max(ms):.2f}) over {N_SCANS - MESH_WARMUP} scans after {MESH_WARMUP}, {fam['ms_per_scan_cold']:.2f} "
+              f"cold; ATE per run {', '.join('%.4f' % a['translation']['rmse'] for a in ates)} m (max "
+              f"{max(a['rotation_deg']['rmse'] for a in ates):.3f} deg), max |d ATE| from phase 14 {max(d_ate):.3e} m; "
+              f"{fam['sinkhorn_launches'] / N_SCANS:.0f} sinkhorn launches/scan per rank on {(B, N, K)}; "
+              f"collectives/scan {per_scan}; profile (rank 0, {MESH_PROFILE_SCANS} scans): "
+              f"{fmt_profile(fam['profile'])} "
+              f"[{time.perf_counter() - t_phase:.1f} s into phase 15]")
+        record["families"][name] = {
+            "mesh": fam["mesh"], "ms_per_scan_rank0": ms[0], "ms_per_scan_slowest_rank": max(ms),
+            "ms_per_scan_cold": fam["ms_per_scan_cold"], "collectives_per_scan": per_scan,
+            "sinkhorn_shape": [B, N, K], "sinkhorn_launches_per_rank": fam["sinkhorn_launches"],
+            "ate_m": [a["translation"]["rmse"] for a in ates], "ate_deg": [a["rotation_deg"]["rmse"] for a in ates],
+            "max_abs_d_ate_vs_phase14_m": max(d_ate), "max_abs_dpose_vs_block_run_sweep": d_ref,
+            "block_ref_scans": MESH_REF_SCANS, "final_pose_spread_m": fam["final_pose_spread_m"],
+            "profile_rank0": fam["profile"], "profiled_scans": MESH_PROFILE_SCANS}
     return record, launches
 
 
@@ -1394,15 +1741,26 @@ def phase_f32(out_flag, ate_flag, ms_flag):
     return {**r, "child_s": child_s, "f64_certificates": f64}, r["sinkhorn_launches"]
 
 
-def main() -> None:
+def main(argv=None) -> None:
+    import argparse
+
     import torch
+
+    p = argparse.ArgumentParser(prog="python3 chip_smoke.py")
+    p.add_argument("--phases", default=None,
+                   help="1,2,15: the device, the kernels and the mesh phase alone (default: every phase)")
+    args = p.parse_args(argv)
+    full = args.phases is None
+    if not full and sorted({int(x) for x in args.phases.split(",")}) != [1, 2, 15]:
+        fail("--phases takes 1,2,15 (phases 3-14 run together, with no --phases)")
 
     # 1. device
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false; this smoke test needs a CUDA card")
     device = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
-    print(f"device: {kind} (torch {torch.__version__}, CUDA {torch.version.cuda})")
+    print(f"device: {kind} (torch {torch.__version__}, CUDA {torch.version.cuda}); "
+          f"{torch.cuda.device_count()} card(s) visible")
     print(nvidia_smi_line())
 
     t_start = time.perf_counter()
@@ -1418,87 +1776,104 @@ def main() -> None:
     rs = phase_raster(device)
     lap("phases 1-2")
 
-    # 3-4. the flagship path and determinism
-    run, cfg, out_flag, ms_flag, launches_flag, ate_flag = phase_flagship(device)
-    phase_determinism(device, run, cfg)
-    lap("phases 3-4")
+    sinkhorn_launches, raster_launches, paths = {}, {}, {}
+    sweep_poses = None
+    if full:
+        # 3-4. the flagship path and determinism
+        run, cfg, out_flag, ms_flag, launches_flag, ate_flag = phase_flagship(device)
+        phase_determinism(device, run, cfg)
+        lap("phases 3-4")
 
-    # 5-7. the camera path, the render of its map, the viewer
-    run_cam, state_cam, out_cam, ms_cam, fe_ms, launches_cam, ate_cam = phase_camera(device)
-    launches_raster, renders, err_render = phase_render(device, state_cam, out_cam)
-    phase_viewer(state_cam, out_cam, run_cam)
-    lap("phases 5-7")
+        # 5-7. the camera path, the render of its map, the viewer
+        run_cam, state_cam, out_cam, ms_cam, fe_ms, launches_cam, ate_cam = phase_camera(device)
+        launches_raster, renders, err_render = phase_render(device, state_cam, out_cam)
+        phase_viewer(state_cam, out_cam, run_cam)
+        lap("phases 5-7")
 
-    # 8-10. the per-hypothesis map branch, the live modes, the filter options
-    per_hyp, shared_ext, launches_hyp = phase_per_hypothesis(device, run, ate_flag)
-    lap("phase 8")
-    live, launches_live = phase_live(device, run, out_flag)
-    lap("phase 9")
-    options, launches_opt = phase_options(device, run)
-    lap("phase 10")
+        # 8-10. the per-hypothesis map branch, the live modes, the filter options
+        per_hyp, shared_ext, launches_hyp = phase_per_hypothesis(device, run, ate_flag)
+        lap("phase 8")
+        live, launches_live = phase_live(device, run, out_flag)
+        lap("phase 9")
+        options, launches_opt = phase_options(device, run)
+        lap("phase 10")
 
-    # 11. a Kimera-schema bag through eval.run
-    bag, launches_bag = phase_bag(device, sk[("float64", 1, 512)])
-    lap("phase 11")
+        # 11. a Kimera-schema bag through eval.run
+        bag, launches_bag = phase_bag(device, sk[("float64", 1, 512)])
+        lap("phase 11")
 
-    # 12. the rehearsal's canonical bag, camera on, through the full variant's command
-    canon, launches_canon, launches_raster_canon = phase_canonical(device, sk[("float64", 1, 1024)], rs[(360, 480)])
-    lap("phase 12")
+        # 12. the rehearsal's canonical bag, camera on, through the full variant's command
+        canon, launches_canon, launches_raster_canon = phase_canonical(device, sk[("float64", 1, 1024)],
+                                                                       rs[(360, 480)])
+        lap("phase 12")
 
-    # 13. the f32-belief flagship
-    f32, launches_f32 = phase_f32(out_flag, ate_flag, ms_flag)
-    lap("phase 13")
+        # 13. the f32-belief flagship
+        f32, launches_f32 = phase_f32(out_flag, ate_flag, ms_flag)
+        lap("phase 13")
 
-    # 14. replay sweeps
-    sweep_rec, launches_sweep = phase_sweep(device, run, out_flag, ate_flag)
-    lap("phase 14")
+        # 14. replay sweeps
+        sweep_rec, launches_sweep, sweep_poses = phase_sweep(device, run, out_flag, ate_flag)
+        lap("phase 14")
 
-    sinkhorn_launches = {
-        ("float64", 1, 1024): launches_flag + launches_live + launches_opt + launches_canon,
-        ("float64", 4, 1024): launches_hyp,
-        ("float64", 1, 1536): launches_cam,
-        ("float64", 1, 512): launches_bag,
-        ("float32", 1, 1024): launches_f32,
-    }
-    for key, n in launches_sweep.items():
+        sinkhorn_launches = {
+            ("float64", 1, 1024): launches_flag + launches_live + launches_opt + launches_canon,
+            ("float64", 4, 1024): launches_hyp,
+            ("float64", 1, 1536): launches_cam,
+            ("float64", 1, 512): launches_bag,
+            ("float32", 1, 1024): launches_f32,
+        }
+        for key, n in launches_sweep.items():
+            sinkhorn_launches[key] = sinkhorn_launches.get(key, 0) + n
+        raster_launches = {(240, 320): launches_raster, (360, 480): VIEWER_RENDERS + launches_raster_canon}
+        paths = {
+            "flagship": {"ms_per_scan": ms_flag, "n_scans": N_SCANS, "n_points": N_POINTS,
+                         "ate_m": ate_flag["translation"]["rmse"], "ate_deg": ate_flag["rotation_deg"]["rmse"],
+                         "sinkhorn_launches": launches_flag},
+            "camera": {"ms_per_scan": ms_cam, "frontend_ms_per_frame": fe_ms, "n_scans": N_SCANS,
+                       "ate_m": ate_cam["translation"]["rmse"], "ate_deg": ate_cam["rotation_deg"]["rmse"],
+                       "sinkhorn_launches": launches_cam},
+            "render": [{"vantage": n, "covered": c, "ms": ms} for n, c, ms in renders],
+            "per_hypothesis": per_hyp,
+            "per_hypothesis_shared_extraction": shared_ext,
+            **live,
+            "options": options,
+            "bag": bag,
+            "canonical": canon,
+            "f32_flagship": f32,
+            "sweep": sweep_rec,
+        }
+    else:
+        print("phases 3-14 skipped (--phases 1,2,15): the kernels line holds the instances phase 15 launched")
+
+    # 15. the sweep over a device mesh
+    mesh_rec, launches_mesh = phase_mesh(device, sweep_poses)
+    lap("phase 15")
+    for key, n in launches_mesh.items():
         sinkhorn_launches[key] = sinkhorn_launches.get(key, 0) + n
-    raster_launches = {(240, 320): launches_raster, (360, 480): VIEWER_RENDERS + launches_raster_canon}
+    paths["mesh"] = mesh_rec
+
     kernels = []
     for key, rec in sk.items():
         kernels.append(dict(
             name="sinkhorn_unbalanced", instance=f"{key[0]} {tuple(rec['shape'])}", paths=MAIN_SINKHORN[key],
             route="cuda", source="gcslam_torch/csrc/sinkhorn.cu", replaces="gcslam_tpu/ops/sinkhorn_pallas.py:59",
-            launches=sinkhorn_launches[key], max_abs_err=rec["max_abs_err"], ms=rec["ms"], device_ms=rec["device_ms"],
-            plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"], bound_by=rec["bound_by"], library_ms=None))
+            launches=sinkhorn_launches.get(key, 0), max_abs_err=rec["max_abs_err"], ms=rec["ms"],
+            device_ms=rec["device_ms"], plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
+            library_ms=None))
     for key, rec in rs.items():
-        err = max(rec["max_abs_err"], err_render) if key == (240, 320) else rec["max_abs_err"]
+        err = max(rec["max_abs_err"], err_render) if key == (240, 320) and full else rec["max_abs_err"]
         kernels.append(dict(
             name="render_splats_raster", instance=f"float32 {tuple(rec['shape'])}",
             paths="map render" if key == (240, 320) else "viewer", route="cuda",
             source="gcslam_torch/csrc/raster.cu", replaces="gcslam_tpu/outputs/rendering_pallas.py:128",
-            launches=raster_launches[key], max_abs_err=err, ms=rec["ms"], device_ms=rec["device_ms"],
+            launches=raster_launches.get(key, 0), max_abs_err=err, ms=rec["ms"], device_ms=rec["device_ms"],
             plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"], bound_by=rec["bound_by"], library_ms=None))
     missing = [f"{k['name']} {k['instance']}" for k in kernels if k["launches"] < 1]
-    if missing:
+    if full and missing:
         fail(f"kernel instances the main paths never launched: {missing}")
-    print(json.dumps({"paths": {
-        "flagship": {"ms_per_scan": ms_flag, "n_scans": N_SCANS, "n_points": N_POINTS,
-                     "ate_m": ate_flag["translation"]["rmse"], "ate_deg": ate_flag["rotation_deg"]["rmse"],
-                     "sinkhorn_launches": launches_flag},
-        "camera": {"ms_per_scan": ms_cam, "frontend_ms_per_frame": fe_ms, "n_scans": N_SCANS,
-                   "ate_m": ate_cam["translation"]["rmse"], "ate_deg": ate_cam["rotation_deg"]["rmse"],
-                   "sinkhorn_launches": launches_cam},
-        "render": [{"vantage": n, "covered": c, "ms": ms} for n, c, ms in renders],
-        "per_hypothesis": per_hyp,
-        "per_hypothesis_shared_extraction": shared_ext,
-        **live,
-        "options": options,
-        "bag": bag,
-        "canonical": canon,
-        "f32_flagship": f32,
-        "sweep": sweep_rec,
-        "seconds": seconds,
-    }}))
+    if not full:
+        kernels = [k for k in kernels if k["launches"] > 0]
+    print(json.dumps({"paths": {**paths, "seconds": seconds}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

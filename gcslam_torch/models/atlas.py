@@ -13,6 +13,18 @@ forget, merge-reduce — is a fixed-shape gather/scatter over the active-tile
 stencil. Functions return new tensors and never write into the atlas they
 were given. Out-of-range scatter rows go to an explicit sentinel row
 (ops/binned), and all top-k choices break ties to the lowest index.
+
+On a ("run", "map") mesh (parallel/mesh.py) the functions that touch the
+atlas take `shard`, this rank's place on the "map" axis, and the atlas
+holds this rank's contiguous block of the tiles of every (T, M, ...)
+payload channel. Reads at given slots gather each row from its owner
+(ops/collectives.gather_rows); writes land on the owner alone
+(ops/collectives.write_rows, the sentinel-row pattern); the one
+whole-atlas reduction, valid_total, sums over "map"; fuse, insert, cull and merge work on the gathered slab. The
+tile table (tile_ids, tile_last_active) and next_global_id stay whole on
+every rank: allocate_tiles is a sequential LRU decision over all T slots,
+and the table is 2 x T small ints. (The JAX package shards the table
+too.) With shard=None nothing changes.
 """
 
 from __future__ import annotations
@@ -27,7 +39,7 @@ from gcslam_torch.models.batch import MeasurementBatch, from_camera_and_surfels,
 from gcslam_torch.models.config import PipelineConfig
 from gcslam_torch.ops import association as assoc_mod
 from gcslam_torch.ops import certs as CT
-from gcslam_torch.ops import evidence_pose, linalg, se3, tiling
+from gcslam_torch.ops import collectives, evidence_pose, linalg, se3, tiling
 from gcslam_torch.ops.association import topk_lowest_index
 from gcslam_torch.ops.binned import scatter_accumulate, scatter_set, take_rows
 from gcslam_torch.ops.se3 import mv
@@ -57,6 +69,10 @@ class AtlasState(NamedTuple):
     rgb: torch.Tensor  # (T, M, 3)
     next_global_id: torch.Tensor  # () int32
 
+
+# the tile table: whole on every rank of a map mesh (every other field is a
+# (T, M, ...) payload channel, split in tile blocks over "map")
+TABLE_FIELDS = ("tile_ids", "tile_last_active", "next_global_id")
 
 # fill value of each per-slot channel in an empty slot
 _SLOT_FILL = {"primitive_ids": -1, "valid": False, "rgb": 0.5}
@@ -104,7 +120,7 @@ def lookup_tiles(atlas: AtlasState, query_ids: torch.Tensor) -> Tuple[torch.Tens
 
 
 def allocate_tiles(
-    atlas: AtlasState, query_ids: torch.Tensor, scan_seq: torch.Tensor
+    atlas: AtlasState, query_ids: torch.Tensor, scan_seq: torch.Tensor, shard=None
 ) -> Tuple[AtlasState, torch.Tensor]:
     """Give every query tile id a table slot: existing match > empty slot >
     least-recently-active eviction; newly claimed slots are cleared."""
@@ -132,7 +148,8 @@ def allocate_tiles(
     def cleared(name):
         x = getattr(atlas, name)
         fill = _SLOT_FILL.get(name, 0)
-        return scatter_set(x, clear, torch.full((S,) + x.shape[1:], fill, dtype=x.dtype, device=x.device))
+        rows = torch.full((S,) + x.shape[1:], fill, dtype=x.dtype, device=x.device)
+        return scatter_set(x, clear, rows) if shard is None else collectives.write_rows(x, clear, rows, shard)
 
     atlas = atlas._replace(
         tile_ids=tile_ids,
@@ -142,20 +159,33 @@ def allocate_tiles(
     return atlas, slots
 
 
+def _read_slots(atlas: AtlasState, names, slots: torch.Tensor, shard) -> dict:
+    """{name: atlas.<name>[slots]} (from the owners on a map mesh)."""
+    if shard is None:
+        return {n: getattr(atlas, n)[slots] for n in names}
+    return dict(zip(names, collectives.gather_rows([getattr(atlas, n) for n in names], slots, shard)))
+
+
 def recency_inflate(
-    atlas: AtlasState, tile_slots: torch.Tensor, scan_seq: torch.Tensor, cfg: PipelineConfig
+    atlas: AtlasState, tile_slots: torch.Tensor, scan_seq: torch.Tensor, cfg: PipelineConfig, shard=None
 ) -> Tuple[AtlasState, torch.Tensor]:
     """Mean-preserving precision downscale of stale primitives in the given
     (distinct) tiles: decay = clip(exp(-lambda dt_scan), min_scale, 1)."""
-    dt = torch.clamp(scan_seq.to(torch.int32) - atlas.last_supported[tile_slots], min=0)
+    rows = _read_slots(atlas, ("last_supported", "valid"), tile_slots, shard)
+    dt = torch.clamp(scan_seq.to(torch.int32) - rows["last_supported"], min=0)
     decay = torch.exp(-cfg.recency_decay_lambda * dt.to(MAPF))
     decay = torch.clamp(decay, cfg.recency_min_scale, 1.0)
-    valid = atlas.valid[tile_slots]
+    valid = rows["valid"]
     decay = torch.where(valid, decay, 1.0)
-    Lam = atlas.Lambdas.clone()
-    Lam[tile_slots] = Lam[tile_slots] * decay[..., None, None]
-    th = atlas.thetas.clone()
-    th[tile_slots] = th[tile_slots] * decay[..., None]
+    if shard is None:
+        Lam = atlas.Lambdas.clone()
+        Lam[tile_slots] = Lam[tile_slots] * decay[..., None, None]
+        th = atlas.thetas.clone()
+        th[tile_slots] = th[tile_slots] * decay[..., None]
+    else:  # this rank's rows scaled and written back; the rows it does not own drop
+        local = torch.clamp(tile_slots - shard.index * atlas.Lambdas.shape[0], 0, atlas.Lambdas.shape[0] - 1)
+        Lam = collectives.write_rows(atlas.Lambdas, tile_slots, atlas.Lambdas[local] * decay[..., None, None], shard)
+        th = collectives.write_rows(atlas.thetas, tile_slots, atlas.thetas[local] * decay[..., None], shard)
     downscale = torch.sum((1.0 - decay) * valid.to(MAPF))
     return atlas._replace(Lambdas=Lam, thetas=th), downscale
 
@@ -176,17 +206,22 @@ class AtlasView(NamedTuple):
     lidar_frac: Optional[torch.Tensor] = None  # (P,)
 
 
+_VIEW_FIELDS = ("weights", "valid", "Lambdas", "thetas", "etas", "cam_mass", "lidar_mass", "primitive_ids",
+                "last_supported")
+
+
 def extract_view(
-    atlas: AtlasState, tile_slots: torch.Tensor, tile_found: torch.Tensor, cfg: PipelineConfig
+    atlas: AtlasState, tile_slots: torch.Tensor, tile_found: torch.Tensor, cfg: PipelineConfig, shard=None
 ) -> AtlasView:
     """Top m_tile_view slots per stencil tile by weight, stitched into one pool."""
     V = cfg.m_tile_view
-    w = atlas.weights[tile_slots]
-    valid = atlas.valid[tile_slots] & tile_found[:, None]
+    rows = _read_slots(atlas, _VIEW_FIELDS, tile_slots, shard)
+    w = rows["weights"]
+    valid = rows["valid"] & tile_found[:, None]
     _, top = topk_lowest_index(torch.where(valid, w, -torch.inf), V)
 
     def g(name):
-        return take_rows(getattr(atlas, name)[tile_slots], top)
+        return take_rows(rows[name], top)
 
     f64 = BELIEF_DTYPE
     Lam64 = g("Lambdas").reshape(-1, 3, 3).to(f64) + C.EPS_LIFT * torch.eye(3, dtype=f64, device=w.device)
@@ -391,12 +426,14 @@ class _Slab(NamedTuple):
     rgb: torch.Tensor
 
 
-def _gather_slab(atlas: AtlasState, active_slots) -> _Slab:
-    return _Slab(**{f: getattr(atlas, f)[active_slots] for f in _Slab._fields})
+def _gather_slab(atlas: AtlasState, active_slots, shard=None) -> _Slab:
+    return _Slab(**_read_slots(atlas, _Slab._fields, active_slots, shard))
 
 
-def _scatter_slab(atlas: AtlasState, active_slots, slab: _Slab) -> AtlasState:
+def _scatter_slab(atlas: AtlasState, active_slots, slab: _Slab, shard=None) -> AtlasState:
     def put(f):
+        if shard is not None:
+            return collectives.write_rows(getattr(atlas, f), active_slots, getattr(slab, f), shard)
         out = getattr(atlas, f).clone()
         out[active_slots] = getattr(slab, f)
         return out
@@ -723,6 +760,7 @@ def map_update_step(
     scan_seq: torch.Tensor,
     timestamp: torch.Tensor,
     cfg: PipelineConfig,
+    shard=None,
 ):
     """Step-15 map update at z_t: one slab gather, fuse -> insert ->
     cull/forget -> merge (on the merge_every cadence, selected branch-free),
@@ -731,7 +769,7 @@ def map_update_step(
     b = extras.batch
     Lam_w, th_w, eta_w, mu_w = _transform_to_world(b.Lambdas, b.thetas, b.etas, R_t, z_t_pose[:3],
                                                    cfg.eps_lift)
-    slab = _gather_slab(atlas, active_slots)
+    slab = _gather_slab(atlas, active_slots, shard)
     slab, fused_mass = _fuse_slab(slab, view, extras, Lam_w, th_w, eta_w, scan_seq, timestamp, cfg)
     slab, next_id, insert_mass, evicted_mass, ins_events = _insert_slab(
         slab, atlas.next_global_id, extras, mu_w, Lam_w, th_w, eta_w,
@@ -747,7 +785,7 @@ def map_update_step(
             n_merged = torch.where(on, n_merged, 0)
         else:
             slab = merged
-    atlas = _scatter_slab(atlas, active_slots, slab)._replace(next_global_id=next_id)
+    atlas = _scatter_slab(atlas, active_slots, slab, shard)._replace(next_global_id=next_id)
 
     f = BELIEF_DTYPE
     tape = dict(
@@ -756,7 +794,7 @@ def map_update_step(
         evicted_mass=(evicted_mass + cull_mass).to(f),
         n_culled=n_culled.to(f),
         n_merged=n_merged.to(f),
-        valid_total=atlas.valid.to(f).sum(),
+        valid_total=atlas.valid.to(f).sum() if shard is None else collectives.sum_over(atlas.valid.to(f).sum(), shard),
         ot_transport_mass=extras.ot_transport_mass.to(f),
         ot_marginal_defect_a=extras.ot_marginal_defect_a.to(f),
         **ins_events,

@@ -23,6 +23,16 @@ prediction -> IMU/odom evidence -> z_lin -> map evidence -> tempering ->
 excitation scaling -> fusion alpha -> additive fusion -> Frobenius
 recompose -> IW suffstats -> anchor drift; then barycenter, IW apply and
 the map update from hypothesis 0.
+
+On a device mesh (parallel/mesh.py) scan_step takes `shard`, a
+ShardContext (ops/collectives.py). On a "hyp" axis the state holds this rank's block of the
+hypotheses (beliefs, hyp_weights): hypothesis 0's belief is gathered
+before the map branch reads it, _hypothesis_step runs on the local block,
+its outputs are gathered over "hyp", and the weight update, barycenter, IW
+averaging, map update and tape run on the whole set, replicated on every
+hyp rank, whose new beliefs and weights are then cut back to the block. On
+a "map" axis the atlas functions read and write a tile-sharded atlas
+(models/atlas.py). With shard=None nothing changes.
 """
 
 from __future__ import annotations
@@ -38,7 +48,7 @@ from gcslam_torch.models.belief import Belief, identity_prior, mean_increment, t
 from gcslam_torch.models.config import PipelineConfig
 from gcslam_torch.models.scan_io import ScanBatch
 from gcslam_torch.ops import certs as CT
-from gcslam_torch.ops import evidence_imu, evidence_odom, fusion, iw, linalg, recompose, se3, tiling
+from gcslam_torch.ops import collectives, evidence_imu, evidence_odom, fusion, iw, linalg, recompose, se3, tiling
 from gcslam_torch.ops.deskew import deskew_constant_twist, deskew_points, deskew_weights
 from gcslam_torch.ops.hypothesis import hypothesis_barycenter
 from gcslam_torch.ops.predict import predict_diffusion, predict_imu
@@ -47,6 +57,7 @@ from gcslam_torch.ops.se3 import mv
 from gcslam_torch.ops.windows import smooth_window_weights
 from gcslam_torch.utils.device import resolve_device
 from gcslam_torch.utils.dtypes import BELIEF_DTYPE
+from gcslam_torch.utils.tree import tree_leaves, tree_rebuild
 
 
 class StepState(NamedTuple):
@@ -531,10 +542,29 @@ def _shared_extraction_inputs(b0: Belief, batch: ScanBatch, view, cfg, sensor_va
     return inputs, z_center
 
 
-def scan_step(state: StepState, batch: ScanBatch, config: PipelineConfig) -> Tuple[StepState, StepOutput]:
+def _gather_hypotheses(hyp_out: HypOutputs, hyp_weights: torch.Tensor, hyp, per_hyp_extras: bool):
+    """Every hyp rank's HypOutputs and weights, whole, in one collective.
+    Per-hypothesis MapExtras shrink to hypothesis 0's (a leading dim of 1),
+    the only one the map update reads; shared extras pass through."""
+    head = [hyp_out._replace(map_extras=None), hyp_weights]
+    n_head = len(tree_leaves(head))
+    # each rank sends its first hypothesis's extras: hyp rank 0's is hypothesis 0
+    tail = [x[0:1] for x in tree_leaves(hyp_out.map_extras)] if per_hyp_extras else []
+    whole = collectives.gather_blocks(tree_leaves(head) + tail, hyp)
+    out, weights = tree_rebuild(head, whole[:n_head])
+    extras = hyp_out.map_extras
+    if per_hyp_extras:
+        extras = tree_rebuild(extras, [x[0:1] for x in whole[n_head:]])
+    return out._replace(map_extras=extras), weights
+
+
+def scan_step(state: StepState, batch: ScanBatch, config: PipelineConfig,
+              shard=None) -> Tuple[StepState, StepOutput]:
     """One full scan: batched hypotheses -> barycenter -> IW apply -> map update."""
     cfg = config
     dev = state.hyp_weights.device
+    hyp = None if shard is None else shard.hyp
+    map_shard = None if shard is None else shard.map
 
     # sensor-boundary non-finite check on the raw batch, then scrub
     batch_finite = torch.ones((), dtype=torch.bool, device=dev)
@@ -551,12 +581,16 @@ def scan_step(state: StepState, batch: ScanBatch, config: PipelineConfig) -> Tup
     atlas = state.atlas
     map_branch = None
     if cfg.with_map:
-        b0 = Belief(*[x[0] for x in state.beliefs])
+        if hyp is None:
+            b0 = Belief(*[x[0] for x in state.beliefs])
+        else:  # hypothesis 0 lives on hyp rank 0
+            b0 = Belief(*[g[0] for g in collectives.all_gather([x[0] for x in state.beliefs], hyp)])
         center = world_pose(b0, cfg.eps_lift)[:3]
         active_ids = tiling.stencil_tile_ids(center, cfg.r_active_xy, cfg.r_active_z, cfg.h_tile)
-        atlas, active_slots = atlas_mod.allocate_tiles(atlas, active_ids, batch.scan_seq)
-        atlas, _ = atlas_mod.recency_inflate(atlas, active_slots, batch.scan_seq, cfg)
-        view = atlas_mod.extract_view(atlas, active_slots, torch.ones_like(active_slots, dtype=torch.bool), cfg)
+        atlas, active_slots = atlas_mod.allocate_tiles(atlas, active_ids, batch.scan_seq, map_shard)
+        atlas, _ = atlas_mod.recency_inflate(atlas, active_slots, batch.scan_seq, cfg, map_shard)
+        view = atlas_mod.extract_view(atlas, active_slots, torch.ones_like(active_slots, dtype=torch.bool), cfg,
+                                      map_shard)
         sensor_var = linalg.trace(Sigma_l) / 3.0
         shared = None
         if cfg.map_share_extraction:
@@ -575,18 +609,25 @@ def scan_step(state: StepState, batch: ScanBatch, config: PipelineConfig) -> Tup
     else:
         beta_scales = torch.ones(cfg.k_hyp, dtype=BELIEF_DTYPE, device=dev)
         map_scales = torch.ones(cfg.k_hyp, dtype=BELIEF_DTYPE, device=dev)
+    prev_weights = state.hyp_weights
+    if hyp is not None:  # this rank's block of the hypotheses
+        k_lo, k_hi = hyp.block(cfg.k_hyp)
+        beta_scales, map_scales = beta_scales[k_lo:k_hi], map_scales[k_lo:k_hi]
     hyp_out = _hypothesis_step(
         state.beliefs, batch, Q, Sigma_g, Sigma_a, map_branch, cfg,
         inputs_finite=batch_finite, beta_scale=beta_scales, map_scale=map_scales)
+    if hyp is not None:
+        hyp_out, prev_weights = _gather_hypotheses(hyp_out, state.hyp_weights, hyp,
+                                                   cfg.with_map and not cfg.map_gn_shared)
 
     # per-scan hypothesis weight update from the evidence fit
     if cfg.hyp_diversify:
         ll = -C.HYP_WEIGHT_LL_GAIN * hyp_out.cert_agg.nll_per_ess
-        w_upd = state.hyp_weights * torch.exp(ll - ll.amax())
+        w_upd = prev_weights * torch.exp(ll - ll.amax())
         w_upd = torch.clamp(w_upd / w_upd.sum(), min=C.HYP_WEIGHT_FLOOR)
         hyp_weights = w_upd / w_upd.sum()
     else:
-        hyp_weights = state.hyp_weights
+        hyp_weights = prev_weights
 
     bary, _ = hypothesis_barycenter(hyp_out.belief, hyp_weights, C.HYP_WEIGHT_FLOOR, cfg.eps_psd, cfg.eps_lift)
     pose = world_pose(bary.belief, cfg.eps_lift)
@@ -609,7 +650,7 @@ def scan_step(state: StepState, batch: ScanBatch, config: PipelineConfig) -> Tup
             extras0 = atlas_mod.hypothesis_extras(extras0, 0)
         atlas_new, map_tape = atlas_mod.map_update_step(
             atlas, view, extras0, hyp_out.z_t_pose[0], active_slots, active_ids,
-            batch.scan_seq, batch.scan_end_time, cfg)
+            batch.scan_seq, batch.scan_end_time, cfg, map_shard)
     else:
         atlas_new = atlas
         zero = torch.zeros((), dtype=f, device=dev)
@@ -676,8 +717,12 @@ def scan_step(state: StepState, batch: ScanBatch, config: PipelineConfig) -> Tup
         io_loop_weight=batch.loop_weight.to(f),
         io_point_weight_sum=batch.point_weights.sum().to(f),
     )
+    beliefs_new = hyp_out.belief
+    if hyp is not None:  # back to this rank's block
+        beliefs_new = Belief(*[x[k_lo:k_hi] for x in beliefs_new])
+        hyp_weights = hyp_weights[k_lo:k_hi]
     state_new = StepState(
-        beliefs=hyp_out.belief,
+        beliefs=beliefs_new,
         hyp_weights=hyp_weights,
         process_iw=process_iw,
         meas_iw=meas_iw,

@@ -26,7 +26,11 @@ def test_port_imports_without_jax():
         "import gcslam_torch.outputs.live_view, gcslam_torch.outputs.rerun_export, gcslam_torch.ops.bev\n"
         "import gcslam_torch.tools.make_synth_bag, gcslam_torch.tools.rehearse, gcslam_torch.tools.precision_compare\n"
         "import gcslam_torch.parallel.sweep, gcslam_torch.tools.attribute_step, gcslam_torch.tools.ablate_gn_shared\n"
-        "import gcslam_torch.utils.cuda_profile\n"
+        "import gcslam_torch.utils.cuda_profile, gcslam_torch.parallel.mesh, gcslam_torch.parallel.dryrun\n"
+        "import gcslam_torch.ops.collectives, gcslam_torch.utils.tree\n"
+        "from gcslam_torch.parallel.sweep import shard_states, shard_batches, gather_states, gather_atlas\n"
+        "from gcslam_torch.utils.checkpoint import save_state_sharded, load_state_sharded\n"
+        "sys.path.insert(0, 'tests'); import torch_mesh_ranks  # the mesh tests' rank worker\n"
         "from gcslam_torch.models.runner import run_scan, run_stream, run_chunked, DeadEndMonitor\n"
         "from gcslam_torch.frontend.camera import extract_camera_features_native\n"
         "from gcslam_torch.models.config import config_from_file\n"
