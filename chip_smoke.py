@@ -67,7 +67,7 @@ Phases, in order; any failure exits non-zero before the result line:
      launches all on (n_surfel, k_assoc) = (512, 8), ATE under the
      rehearsal gate and within 0.05 m of the JAX package's on the same bag
      (the range it takes over one-ulp nudges of the LiDAR extrinsic, see
-     BAG_LIDAR_X); the port's ATE over the same nudges; then load_bag alone
+     BAG_LIDAR_X); the port's ATE at one of them; then load_bag alone
      and 5 warm-up and 45 timed scans;
  12. the canonical camera-on bag: tools/make_synth_bag with the JAX
      rehearsal's arguments (circuit, integrated odometry, 16384 raw points,
@@ -113,7 +113,21 @@ Phases, in order; any failure exits non-zero before the result line:
      (run=n/2, hyp=2) per hypothesis and on (run=n/2, map=2): every run
      under the ATE gate and, with the shared GN chain, within 1e-3 m of
      phase 14's run (per hypothesis within 0.05 m), 2 Sinkhorn launches a
-     scan on every rank, ms/scan after 2 scans and collectives per scan.
+     scan on every rank, ms/scan after 2 scans and collectives per scan;
+ 16. the tools on the card's host (which has no JAX and no matplotlib), on
+     phase 11's bag, its ground truth and its eval.run output, each through
+     its main() in this process and bag_info also through `python3 -m` in a
+     child: compute_time_alignment and kimera_calibration_to_gc prepare a
+     copy of configs/gc_kimera.yaml (the profile, read back through the
+     copy, has finite IMU and odometry offsets; the extrinsics come back
+     within 1e-6), then every forensics, trajectory and map-event tool
+     exits with its success code (replay_map_events' integrity checks over
+     all 50 scans, trajectory_swaps ranking the identity first), and
+     dead_reckon, estimate_extrinsics (within 1e-12) and
+     diagnose_gyro_composition (within 1e-9, verdict OK) give the same
+     report on the card as with --cpu; the phase's and each tool's seconds
+     go to {"paths": {"tools": ...}}, and the phase fails past 90 s.
+     Skipped with --phases 1,2,15.
 Before the last line it prints {"paths": ...} and {"kernels": [...]}, one
 kernel record per instance the main paths launch (dtype and shape), and
 fails if one was never launched; the last line is {"ok": true, "device":
@@ -122,6 +136,7 @@ fails if one was never launched; the last line is {"ok": true, "device":
 
 import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -203,6 +218,9 @@ JAX_BAG_ATE = {  # m, deg
     "+3e-7": (0.05663981843638647, 0.9072324468394252),
 }
 BAG_ATE_BOUND_M = 0.05  # tests/test_pipeline.py:395
+# the port's own replay at the nudge where the JAX package reads highest
+# (one of BAG_LIDAR_X's three, to keep the full call inside its time limit)
+PORT_BAG_NUDGE = "+1e-7"
 REHEARSAL_GATE = (0.38, 4.0)  # m, deg: the rehearsal's gate (REHEARSAL_r05.json)
 # Phase 12: the rehearsal's canonical bag (tools/make_synth_bag with
 # gcslam_tpu/tools/rehearse.py's arguments: circuit, integrated odometry,
@@ -280,6 +298,15 @@ F32_ENV = {"GCSLAM_BELIEF_DTYPE": "float32"}
 BAG_ARTIFACTS = ["runtime_manifest.json", "trajectory.tum", "ground_truth.tum", "diagnostics.npz",
                  "splat_export.npz", "metrics.json", "metrics.csv", "dashboard.html", "map_events.jsonl",
                  "audit.json"]
+# Phase 16: the bag-preparation, forensics, trajectory and device tools
+# (gcslam_torch/tools) on phase 11's bag and eval.run output, on the card's
+# host (no JAX and no matplotlib there)
+TOOLS_PHASE_LIMIT_S = 90.0
+TOOLS_CARD_CPU_TOL = 1e-12  # dead_reckon / estimate_extrinsics: host float64 on bit-equal load_bag rows
+GYRO_CARD_CPU_TOL = 1e-9  # diagnose_gyro_composition's report (deg, m, rad), rounded by the tool to 2-5 decimals
+# the unrounded outputs of the evidence operators its probes call, card
+# against CPU: max |card - cpu| over max(1, max |cpu|) of each array
+GYRO_EVIDENCE_RTOL = 1e-12
 
 
 def fail(msg: str) -> None:
@@ -1043,18 +1070,13 @@ def phase_bag(device, sk_bag):
     if ate_m > REHEARSAL_GATE[0] or ate_deg > REHEARSAL_GATE[1]:
         fail(f"bag replay: ATE {ate_m:.4f} m / {ate_deg:.4f} deg is above the rehearsal gate {REHEARSAL_GATE}")
 
-    # the port's own spread: the same nudges of the LiDAR extrinsic
-    base = list(bag_cfg.T_base_lidar)
-    nudged = {}
-    for name, x in BAG_LIDAR_X.items():
-        if name == "config":
-            continue
-        m = eval_run.main(args + ["--frontend-set", f"T_base_lidar={json.dumps([x] + base[1:])}",
-                                  "--out", os.path.join(bag_dir, f"run_{name}")])
-        nudged[name] = (m["ate"]["translation"]["rmse"], m["ate"]["rotation_deg"]["rmse"])
-    port_m = [ate_m] + [m for m, _ in nudged.values()]
-    print(f"port over the same nudges: ATE {', '.join(f'{k} {m:.4f} m / {d:.4f} deg' for k, (m, d) in nudged.items())}"
-          f"; {min(port_m):.4f}-{max(port_m):.4f} m with the config's")
+    # the port's own spread: a nudge of the LiDAR extrinsic
+    x_nudged = [BAG_LIDAR_X[PORT_BAG_NUDGE]] + list(bag_cfg.T_base_lidar)[1:]
+    m = eval_run.main(args + ["--frontend-set", f"T_base_lidar={json.dumps(x_nudged)}",
+                              "--out", os.path.join(bag_dir, f"run_{PORT_BAG_NUDGE}")])
+    nudged = (m["ate"]["translation"]["rmse"], m["ate"]["rotation_deg"]["rmse"])
+    print(f"port at the nudge {PORT_BAG_NUDGE}: ATE {nudged[0]:.4f} m / {nudged[1]:.4f} deg; {ate_m:.4f} m with "
+          f"the config's")
 
     # the frontend alone, then the replay timed after a warm-up
     t0 = time.perf_counter()
@@ -1073,7 +1095,7 @@ def phase_bag(device, sk_bag):
     record = {"n_scans": n, "n_returns": BAG_SYNTH["n_points"], "n_points": BAG_POINTS, "camera": False,
               "bag_write_s": write_s, "load_ms_per_scan": load_ms, "replay_ms_per_scan": replay_ms,
               "eval_run_s": run_s, "ate_m": ate_m, "ate_deg": ate_deg, "rpe_1m_m": rpe["translation"]["rmse"],
-              "rpe_1m_deg": rpe["rotation_deg"]["rmse"], "ate_nudged": nudged, "jax_ate": JAX_BAG_ATE,
+              "rpe_1m_deg": rpe["rotation_deg"]["rmse"], "ate_nudged": {PORT_BAG_NUDGE: nudged}, "jax_ate": JAX_BAG_ATE,
               "audit_checks": len(audit) - 1, "sinkhorn_launches": launches, "sinkhorn_shape": list(expected),
               "sinkhorn_512": sk_bag}
     return record, launches
@@ -1671,6 +1693,223 @@ def phase_mesh(device, sweep_poses):
     return record, launches
 
 
+def run_tool(name: str, argv):
+    """tools/<name>.main(argv) in this process, its output captured:
+    (stdout, seconds). Fails unless it exits 0 (a main that returns None or
+    its report exits 0)."""
+    import importlib
+    import io
+
+    mod = importlib.import_module(f"gcslam_torch.tools.{name}")
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = mod.main(list(argv))
+    except SystemExit as e:
+        rc = e.code
+    seconds = time.perf_counter() - t0
+    rc = 0 if rc is None or isinstance(rc, dict) else rc
+    if rc != 0:
+        fail(f"tools/{name} {' '.join(argv)}: exit {rc}; stderr: {err.getvalue()[-2000:]}")
+    return out.getvalue(), seconds
+
+
+def max_diff(a, b, path=""):
+    """Largest |a - b| over the numbers of two JSON reports: 0 where both
+    are the same non-finite value (NaN with NaN), inf where only one is
+    finite or they are unequal infinities; fails where their structure,
+    keys or other values differ."""
+    if isinstance(a, dict):
+        if list(a) != list(b):
+            fail(f"card and CPU reports differ at {path}: keys {list(a)} vs {list(b)}")
+        return max([max_diff(a[k], b[k], f"{path}.{k}") for k in a], default=0.0)
+    if isinstance(a, list):
+        if len(a) != len(b):
+            fail(f"card and CPU reports differ at {path}: {len(a)} vs {len(b)} entries")
+        return max([max_diff(x, y, f"{path}[{i}]") for i, (x, y) in enumerate(zip(a, b))], default=0.0)
+    if isinstance(a, float) or isinstance(b, float):
+        x, y = float(a), float(b)
+        if x == y or (math.isnan(x) and math.isnan(y)):
+            return 0.0
+        return abs(x - y) if math.isfinite(x) and math.isfinite(y) else math.inf
+    if a != b:
+        fail(f"card and CPU reports differ at {path}: {a!r} vs {b!r}")
+    return 0.0
+
+
+@contextlib.contextmanager
+def recorded_evidence(store: list):
+    """Appends (operator, outputs as float64 numpy) for every call of the
+    two evidence operators that diagnose_gyro_composition probes (it
+    imports them at each call), unrounded, while the block runs."""
+    from gcslam_torch.ops import evidence_imu, evidence_odom
+
+    ops = [(evidence_imu, "imu_gyro_rotation_evidence", 3), (evidence_odom, "odom_quadratic_evidence", 2)]
+    originals = [getattr(mod, name) for mod, name, _ in ops]  # outputs: (L, h, r_rot) and (L, h)
+
+    def recording(fn, name, n_out):
+        def call(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            store.append((name, [o.detach().cpu().double().numpy() for o in out[:n_out]]))
+            return out
+        return call
+
+    for (mod, name, n_out), fn in zip(ops, originals):
+        setattr(mod, name, recording(fn, name, n_out))
+    try:
+        yield store
+    finally:
+        for (mod, name, _), fn in zip(ops, originals):
+            setattr(mod, name, fn)
+
+
+def phase_tools():
+    """The 26 tools on phase 11's Kimera-schema bag, its ground truth and
+    its eval.run output, each through its main() in this process (one
+    through `python3 -m` in a child): the Kimera-ready preparation flow,
+    the forensics, the trajectory and map-event tools, and the three device
+    tools on the card against --cpu. Returns its record."""
+    import shutil
+
+    from gcslam_torch.frontend import rosbag
+
+    t_phase = time.perf_counter()
+    bag_dir = os.path.join(OUT_DIR, "bag")
+    bag, gt = os.path.join(bag_dir, "kimera_synth.db3"), os.path.join(bag_dir, "kimera_synth_gt.tum")
+    run_dir = os.path.join(bag_dir, "run")
+    traj, events = os.path.join(run_dir, "trajectory.tum"), os.path.join(run_dir, "map_events.jsonl")
+    out = os.path.join(OUT_DIR, "tools")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(os.path.join(out, "time_alignment"))
+    summary = rosbag.bag_topic_summary(bag)
+
+    def topic(frag):
+        return next(n for n, (typ, count) in summary.items() if frag in typ and count)
+
+    lidar, imu, odom = topic("PointCloud2"), topic("Imu"), topic("Odometry")
+    seconds = {}
+
+    def tool(name, *argv, label=None):
+        text, s = run_tool(name, argv)
+        seconds[label or name] = s
+        return text
+
+    # 1. bag preparation: README's Kimera-ready flow into a copy of the config
+    cfg = rosbag.bag_config_from_file(BAG_CONFIG)
+    cfg_copy = os.path.join(out, os.path.basename(BAG_CONFIG))
+    shutil.copy(BAG_CONFIG, cfg_copy)
+    profile = os.path.join(out, "time_alignment", "kimera_10_14_acl_jackal_005.yaml")  # the path the config names
+    tool("compute_time_alignment", bag, "--reference", lidar, "--topics", imu, odom, "--out", profile)
+
+    def T(v):
+        m = np.eye(4)
+        m[:3, :3], m[:3, 3] = rosbag._rotvec_R(v[3:6]), v[:3]
+        return m.tolist()
+
+    ext = os.path.join(out, "extrinsics.yaml")
+    with open(ext, "w") as f:
+        json.dump({"transforms": [{"name": "T_baselink_lidar", "T": T(cfg.T_base_lidar)},
+                                  {"name": "T_cameralink_gyro", "T": T(cfg.T_base_imu)}]}, f)
+    tool("kimera_calibration_to_gc", ext, "--apply", "--config", cfg_copy)
+    prepared = rosbag.bag_config_from_file(cfg_copy)
+    ext_err = max(float(np.abs(np.subtract(getattr(prepared, k), getattr(cfg, k))).max())
+                  for k in ("T_base_lidar", "T_base_imu"))
+    offsets = {k: a.offset_sec for k, a in (prepared.alignment or {}).items()}
+    if set(offsets) != {imu, odom} or not np.isfinite(list(offsets.values())).all():
+        fail(f"tools: the time-alignment profile read back through the config holds {offsets}")
+    if ext_err > 1e-6:
+        fail(f"tools: kimera_calibration_to_gc's extrinsics are {ext_err:.2e} from the config's")
+    tool("dump_raw_imu_odom", bag, "--out-dir", out)
+    rotvec = ",".join(str(x) for x in cfg.T_base_imu[3:6])
+    tool("apply_imu_extrinsic", os.path.join(out, "imu_raw_first_300.csv"), f"--rotvec={rotvec}", "--out",
+         os.path.join(out, "imu_base.csv"))
+    tool("validate_conventions", bag, "--json", f"--t-base-imu={rotvec}")
+
+    # 2. forensics on cdr / rosbag alone; bag_info also as a module in a child
+    info = json.loads(tool("bag_info", bag))
+    t0 = time.perf_counter()
+    child = subprocess.run([sys.executable, "-m", "gcslam_torch.tools.bag_info", bag], capture_output=True,
+                           text=True, timeout=120)
+    seconds["bag_info (python3 -m)"] = time.perf_counter() - t0
+    if child.returncode != 0 or json.loads(child.stdout) != info:
+        fail(f"tools: python3 -m gcslam_torch.tools.bag_info exited {child.returncode} or printed another report; "
+             f"stderr: {child.stderr[-2000:]}")
+    tool("first_n_messages_summary", bag, "--json", os.path.join(out, "first_messages.json"))
+    tool("inspect_bag_deep", bag, "--json", os.path.join(out, "inspect_bag_deep.json"))
+    tool("inspect_odom_covariance", bag, "--json")
+    tool("inspect_odom_source", bag, "--json")
+    cam = json.loads(tool("inspect_camera_frames", bag, "--json"))
+    if "rgb_depth_pairing" not in cam:
+        fail(f"tools: inspect_camera_frames paired no rgb and depth frames on {sorted(cam['topics'])}")
+    tool("plot_wz_odom", os.path.join(out, "odom_raw_first_300.csv"), "--out", os.path.join(out, "wz.svg"))
+    tool("compare_accel_odom", bag, "--config", BAG_CONFIG, "--json")
+    tool("compare_imu_sources", bag, "--json")
+    tool("check_extrinsics", BAG_CONFIG, "--bag", bag, "--json")
+    tool("check_lidar_mount_angle", bag, "--json")
+    tool("check_turn_invariant", bag, "--config", BAG_CONFIG, "--json")
+    tool("diagnose_frames", bag, "--json")
+    tool("diagnose_trajectory_axes", bag, traj, "--json")
+
+    # 3. the trajectory and the map-event log of phase 11's eval.run
+    tool("evaluate_trajectory_2d", traj, gt, "--plot", os.path.join(out, "trajectory_2d.svg"), "--json")
+    tool("diagnose_trajectory_alignment", traj, gt, "--json")
+    swaps = json.loads(tool("trajectory_swaps", traj, gt, "--top", "3"))
+    if not swaps["identity_is_best"]:
+        fail(f"tools: trajectory_swaps ranks {swaps['best']['perm']} above the identity")
+    n_scans = sum(1 for line in open(events) if "event" not in json.loads(line))
+    rep = json.loads(tool("replay_map_events", events, "--at-scan", str(n_scans - 1), "--snapshot",
+                          os.path.join(out, "map_snapshot.npz"), "--json"))
+    if rep["n_scans"] != n_scans or n_scans != BAG_SYNTH["n_scans"] or not all(rep["integrity"].values()):
+        fail(f"tools: replay_map_events over {rep['n_scans']} of {BAG_SYNTH['n_scans']} scans: {rep['integrity']}")
+    with np.load(os.path.join(out, "map_snapshot.npz")) as z:
+        if len(z["ids"]) != rep["n_inserts"]:
+            fail(f"tools: the map snapshot holds {len(z['ids'])} of {rep['n_inserts']} inserts")
+
+    # 4. the device tools on the card and with --cpu
+    card_cpu = {}
+    for name, argv, tol in (("dead_reckon", ["--bag", bag], TOOLS_CARD_CPU_TOL),
+                            ("estimate_extrinsics", ["--bag", bag], TOOLS_CARD_CPU_TOL),
+                            ("diagnose_gyro_composition", ["--json"], GYRO_CARD_CPU_TOL)):
+        with recorded_evidence([]) as ev_card:
+            card = json.loads(tool(name, *argv))
+        with recorded_evidence([]) as ev_cpu:
+            cpu = json.loads(tool(name, *argv, "--cpu", label=f"{name} --cpu"))
+        d = max_diff(card, cpu)
+        card_cpu[name] = {"max_abs_diff": d, "bit_equal": card == cpu}
+        if d > tol:
+            fail(f"tools/{name}: the card's report is {d:.3e} from the CPU's (bound {tol})")
+    gyro = card
+    if gyro["verdict"] != "OK":
+        fail(f"tools/diagnose_gyro_composition on the card: verdict {gyro['verdict']}")
+    # the gyro report's rounding hides gaps under ~1e-4 deg: hold the
+    # operators' unrounded outputs at every probe as well
+    calls = [name for name, _ in ev_card]
+    if calls != [name for name, _ in ev_cpu] or calls.count("odom_quadratic_evidence") != 1 or len(calls) != 4:
+        fail(f"tools/diagnose_gyro_composition called the evidence operators as {calls} on the card, "
+             f"{[name for name, _ in ev_cpu]} with --cpu")
+    ev_rel = max(max_diff(a.tolist(), b.tolist()) / max(1.0, float(np.abs(b).max()))
+                 for (_, outs_card), (_, outs_cpu) in zip(ev_card, ev_cpu) for a, b in zip(outs_card, outs_cpu))
+    card_cpu[name]["evidence_max_rel_diff"] = ev_rel
+    if not ev_rel <= GYRO_EVIDENCE_RTOL:
+        fail(f"tools/diagnose_gyro_composition: the evidence operators' outputs on the card are {ev_rel:.3e} "
+             f"(relative) from the CPU's (bound {GYRO_EVIDENCE_RTOL})")
+
+    phase_s = time.perf_counter() - t_phase
+    print(f"tools on phase 11's bag: {len(seconds)} runs of {len({k.split()[0] for k in seconds})} tools in "
+          f"{phase_s:.1f} s; the prepared config's extrinsics {ext_err:.1e} from the config's, alignment offsets "
+          f"{ {k: round(v, 6) for k, v in offsets.items()} } s; map events: {rep['n_inserts']} inserts over "
+          f"{n_scans} scans, integrity {rep['integrity']}; trajectory_swaps best {swaps['best']['perm']} "
+          f"(ATE {swaps['best']['ate_trans_rmse_m']} m); card vs --cpu {card_cpu}; gyro verdict {gyro['verdict']}")
+    print("tool seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in seconds.items()))
+    if phase_s > TOOLS_PHASE_LIMIT_S:
+        fail(f"tools: phase 16 took {phase_s:.1f} s (limit {TOOLS_PHASE_LIMIT_S} s)")
+    return {"seconds": phase_s, "tool_seconds": seconds, "n_tools": len({k.split()[0] for k in seconds}),
+            "extrinsics_round_trip_err": ext_err, "alignment_offsets_s": offsets,
+            "map_events": {"n_scans": n_scans, "n_inserts": rep["n_inserts"], "integrity": rep["integrity"]},
+            "swaps_best": swaps["best"], "card_vs_cpu": card_cpu, "gyro_verdict": gyro["verdict"]}
+
+
 def f32_flagship_child() -> None:
     """Phase 13's child (GCSLAM_BELIEF_DTYPE=float32 binds at import): the
     flagship replay after a warm-up; prints one JSON line."""
@@ -1752,7 +1991,7 @@ def main(argv=None) -> None:
     args = p.parse_args(argv)
     full = args.phases is None
     if not full and sorted({int(x) for x in args.phases.split(",")}) != [1, 2, 15]:
-        fail("--phases takes 1,2,15 (phases 3-14 run together, with no --phases)")
+        fail("--phases takes 1,2,15 (phases 3-14 and 16 run together, with no --phases)")
 
     # 1. device
     if not torch.cuda.is_available():
@@ -1843,7 +2082,7 @@ def main(argv=None) -> None:
             "sweep": sweep_rec,
         }
     else:
-        print("phases 3-14 skipped (--phases 1,2,15): the kernels line holds the instances phase 15 launched")
+        print("phases 3-14 and 16 skipped (--phases 1,2,15): the kernels line holds phase 15's instances")
 
     # 15. the sweep over a device mesh
     mesh_rec, launches_mesh = phase_mesh(device, sweep_poses)
@@ -1851,6 +2090,11 @@ def main(argv=None) -> None:
     for key, n in launches_mesh.items():
         sinkhorn_launches[key] = sinkhorn_launches.get(key, 0) + n
     paths["mesh"] = mesh_rec
+
+    if full:
+        # 16. the tools on the card's host, on phase 11's bag and run
+        paths["tools"] = phase_tools()
+        lap("phase 16")
 
     kernels = []
     for key, rec in sk.items():

@@ -144,6 +144,16 @@ def stack_scan_batches(batches: list) -> ScanBatch:
     return ScanBatch(*[torch.stack([getattr(b, f) for b in batches]) for f in ScanBatch._fields])
 
 
+def host_batches(batches: list) -> list:
+    """The batches as ScanBatch tuples of numpy arrays on the host, one per
+    scan, moved with one device-to-host copy per field (the tools' analyses
+    read fields with numpy, which cannot read a CUDA tensor)."""
+    if not batches:
+        return []
+    host = [x.cpu().numpy() for x in stack_scan_batches(batches)]
+    return [ScanBatch(*[x[k] for x in host]) for k in range(len(batches))]
+
+
 def range_weights(dist: np.ndarray) -> np.ndarray:
     """Continuous range-based point weights."""
     a = (dist - C.RANGE_WEIGHT_MIN_R) / C.RANGE_WEIGHT_SIGMA

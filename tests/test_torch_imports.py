@@ -7,6 +7,15 @@ import subprocess
 import sys
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
+# the bag-preparation, bag-forensics, trajectory and device tools
+FORENSIC_TOOLS = [
+    "kimera_calibration_to_gc", "compute_time_alignment", "apply_imu_extrinsic", "validate_conventions",
+    "bag_info", "first_n_messages_summary", "inspect_bag_deep", "inspect_odom_covariance", "inspect_odom_source",
+    "inspect_camera_frames", "dump_raw_imu_odom", "plot_wz_odom", "compare_accel_odom", "compare_imu_sources",
+    "check_extrinsics", "check_lidar_mount_angle", "check_turn_invariant", "diagnose_frames",
+    "diagnose_trajectory_axes", "evaluate_trajectory_2d", "diagnose_trajectory_alignment", "trajectory_swaps",
+    "replay_map_events", "dead_reckon", "estimate_extrinsics", "diagnose_gyro_composition",
+]
 
 
 def test_port_imports_without_jax():
@@ -27,7 +36,9 @@ def test_port_imports_without_jax():
         "import gcslam_torch.tools.make_synth_bag, gcslam_torch.tools.rehearse, gcslam_torch.tools.precision_compare\n"
         "import gcslam_torch.parallel.sweep, gcslam_torch.tools.attribute_step, gcslam_torch.tools.ablate_gn_shared\n"
         "import gcslam_torch.utils.cuda_profile, gcslam_torch.parallel.mesh, gcslam_torch.parallel.dryrun\n"
-        "import gcslam_torch.ops.collectives, gcslam_torch.utils.tree\n"
+        "import gcslam_torch.ops.collectives, gcslam_torch.utils.tree, gcslam_torch.outputs.svg_plot\n"
+        "import importlib; sys.modules['matplotlib'] = None  # the card's host has none\n"
+        f"for t in {FORENSIC_TOOLS!r}: importlib.import_module('gcslam_torch.tools.' + t)\n"
         "from gcslam_torch.parallel.sweep import shard_states, shard_batches, gather_states, gather_atlas\n"
         "from gcslam_torch.utils.checkpoint import save_state_sharded, load_state_sharded\n"
         "sys.path.insert(0, 'tests'); import torch_mesh_ranks  # the mesh tests' rank worker\n"
