@@ -128,6 +128,22 @@ Phases, in order; any failure exits non-zero before the result line:
      report on the card as with --cpu; the phase's and each tool's seconds
      go to {"paths": {"tools": ...}}, and the phase fails past 90 s.
      Skipped with --phases 1,2,15.
+ 17. the measurement layer at PipelineConfig(), each tool through its
+     main() or its module function in this process: tools/warm_cache
+     (every library already built by phase 1, this process built none;
+     the seconds to load each, one flagship step, one 10-scan chunk);
+     tools/cold_start in one fresh child process (its milestones in
+     increasing order, no native build before its first pose); phase 3's
+     run_bag ledger (utils/profiling.COUNTERS; every replay() checks one
+     host-to-device call, no read back and no host sync before the
+     gather); the implicit host syncs of 3 flagship scans under
+     torch.cuda.set_sync_debug_mode("warn"), with their call sites;
+     tools/profile_step over 5 steps (p50/p95 ms, peak device memory, the
+     first scan); tools/kernel_census of scan 5 after 5, its launch calls
+     within 1 % of phase 8's flagship launch calls a scan and every launch
+     attributed, the top 25 functions; tools/microbench_scatter at the
+     production shapes, the strategies' checksums within 1e-3 of one
+     another. Skipped with --phases 1,2,15.
 Before the last line it prints {"paths": ...} and {"kernels": [...]}, one
 kernel record per instance the main paths launch (dtype and shape), and
 fails if one was never launched; the last line is {"ok": true, "device":
@@ -302,6 +318,10 @@ BAG_ARTIFACTS = ["runtime_manifest.json", "trajectory.tum", "ground_truth.tum", 
 # (gcslam_torch/tools) on phase 11's bag and eval.run output, on the card's
 # host (no JAX and no matplotlib there)
 TOOLS_PHASE_LIMIT_S = 90.0
+# phase 17 (the measurement layer)
+PROFILE_STEPS = 5
+CENSUS_LAUNCH_RTOL = 0.01  # the census's launch calls of one scan against phase 8's a scan
+SCATTER_CHECKSUM_TOL = 1e-3  # the JAX tool prints its checksums to 3 decimals
 TOOLS_CARD_CPU_TOL = 1e-12  # dead_reckon / estimate_extrinsics: host float64 on bit-equal load_bag rows
 GYRO_CARD_CPU_TOL = 1e-9  # diagnose_gyro_composition's report (deg, m, rad), rounded by the tool to 2-5 decimals
 # the unrounded outputs of the evidence operators its probes call, card
@@ -619,15 +639,21 @@ def replay(device, cfg, run, label):
     from gcslam_torch.eval.ate_rpe import compute_ate
     from gcslam_torch.models import runner
     from gcslam_torch.ops import sinkhorn
+    from gcslam_torch.utils.profiling import COUNTERS
 
     runner.run_bag(run.batches[:N_WARMUP], cfg, device=device)
     torch.cuda.synchronize()
     sinkhorn.COUNTER.reset()
+    COUNTERS.reset()
     t0 = time.perf_counter()
     state, out = runner.run_bag(run.batches, cfg, device=device)
+    ledger = COUNTERS.cert()
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     launches = sinkhorn.COUNTER.launches
+    if (ledger["h2d_calls"], ledger["d2h_bytes"], ledger["host_syncs"]) != (1, 0, 0):
+        fail(f"{label}: run_bag's transfer ledger before the gather is {ledger}: expected one host-to-device "
+             "call, no device-to-host read and no host sync")
 
     poses = out.pose.cpu().numpy()
     n = len(run.batches)
@@ -637,12 +663,13 @@ def replay(device, cfg, run, label):
     ms_scan = 1e3 * elapsed / n
     print(f"{label}: {ms_scan:.2f} ms/scan over {n} scans (after {N_WARMUP} warm-up scans); "
           f"ATE {ate['translation']['rmse']:.4f} m / {ate['rotation_deg']['rmse']:.4f} deg; "
-          f"sinkhorn launches {launches}")
+          f"sinkhorn launches {launches}; transfer ledger before the gather: {ledger['h2d_calls']} host-to-device "
+          f"call of {ledger['h2d_bytes']} B, {ledger['d2h_bytes']} B read back, {ledger['host_syncs']} host syncs")
     if launches != cfg.map_icp_iters * n:
         fail(f"{label}: sinkhorn launched {launches} times, expected {cfg.map_icp_iters * n}")
     if ate["translation"]["rmse"] > GATE_ATE_TRANS_RMSE_M or ate["rotation_deg"]["rmse"] > GATE_ATE_ROT_RMSE_DEG:
         fail(f"{label} ATE gate: {ate['translation']['rmse']:.4f} m / {ate['rotation_deg']['rmse']:.4f} deg")
-    return state, out, ms_scan, launches, ate
+    return state, out, ms_scan, launches, ate, ledger
 
 
 def phase_flagship(device):
@@ -653,8 +680,8 @@ def phase_flagship(device):
     run = generate(SyntheticConfig(n_scans=N_SCANS, n_points=N_POINTS), device=device)
     print(f"generated {N_SCANS} scans x {N_POINTS} points in {time.perf_counter() - t0:.1f} s")
     cfg = PipelineConfig()
-    _, out, ms_scan, launches, ate = replay(device, cfg, run, "flagship path")
-    return run, cfg, out, ms_scan, launches, ate
+    _, out, ms_scan, launches, ate, ledger = replay(device, cfg, run, "flagship path")
+    return run, cfg, out, ms_scan, launches, ate, ledger
 
 
 def phase_determinism(device, run, cfg) -> None:
@@ -719,7 +746,7 @@ def phase_camera(device):
     # record the Sinkhorn problem shapes of the camera path
     with sinkhorn_shapes() as shapes:
         cfg = PipelineConfig(with_camera=True)
-        state, out, ms_scan, launches, ate = replay(device, cfg, run, "camera path")
+        state, out, ms_scan, launches, ate, _ = replay(device, cfg, run, "camera path")
     expected = (cfg.n_surfel + cfg.n_feat, cfg.k_assoc)
     if shapes != {expected}:
         fail(f"camera path: sinkhorn problem shapes {sorted(shapes)}, expected {expected}")
@@ -830,7 +857,7 @@ def phase_per_hypothesis(device, run, ate_flag):
     cfg = PipelineConfig(**PER_HYP)
     expected = (C.K_HYP, cfg.n_surfel, cfg.k_assoc)
     with sinkhorn_shapes() as shapes:
-        _, _, ms_scan, launches, ate = replay(device, cfg, run, "per-hypothesis path")
+        _, _, ms_scan, launches, ate, _ = replay(device, cfg, run, "per-hypothesis path")
     if shapes != {expected}:
         fail(f"per-hypothesis path: sinkhorn problem shapes {sorted(shapes)}, expected {expected}")
     d_ate = abs(ate["translation"]["rmse"] - ate_flag["translation"]["rmse"])
@@ -966,7 +993,7 @@ def phase_options(device, run):
     for name, overrides in OPTIONS.items():
         cfg = PipelineConfig(**overrides)
         with sinkhorn_shapes() as shapes:
-            _, _, ms_scan, launches, ate = replay(device, cfg, sub, f"option {name}")
+            _, _, ms_scan, launches, ate, _ = replay(device, cfg, sub, f"option {name}")
         expected = (cfg.n_surfel, cfg.k_assoc)
         if shapes != {expected}:
             fail(f"option {name}: sinkhorn problem shapes {sorted(shapes)}, expected {expected}")
@@ -1980,6 +2007,99 @@ def phase_f32(out_flag, ate_flag, ms_flag):
     return {**r, "child_s": child_s, "f64_certificates": f64}, r["sinkhorn_launches"]
 
 
+def phase_runtime(device, run, ledger_flag, launches_phase8):
+    """Phase 17: the measurement layer on the card at the flagship
+    PipelineConfig(): warm_cache, cold_start in a fresh child, phase 3's
+    transfer ledger, the implicit host syncs a scan, profile_step, the
+    kernel census of one scan against phase 8's launch calls a scan, and
+    the scatter strategies; returns its record."""
+    from gcslam_torch.models import runner
+    from gcslam_torch.models.config import PipelineConfig
+    from gcslam_torch.tools import cold_start, kernel_census, microbench_scatter, profile_step, warm_cache
+    from gcslam_torch.utils.cuda_profile import implicit_syncs
+    from gcslam_torch.utils.profiling import COUNTERS
+
+    t_phase = time.perf_counter()
+    rec = {}
+
+    builds = COUNTERS.native_builds
+    out, _ = run_tool("warm_cache", [])
+    warm = json.loads(out.strip().splitlines()[-1])
+    if not all(lib["already_built"] for lib in warm["libraries"].values()) or warm["native_builds"] != builds:
+        fail(f"warm_cache: a library was not built by phase 1, or warm_cache built one: {warm}")
+    print("warm_cache: " + ", ".join(f"{k} already built {v['already_built']}, loaded in {v['s']:.3f} s"
+                                     for k, v in warm["libraries"].items())
+          + f"; flagship step {warm['step_s']:.3f} s, one chunk of {warm['chunk']} scans {warm['chunked_s']:.3f} s")
+    rec["warm_cache"] = warm
+
+    cold = cold_start.measure(cpu=False, skip_warm=True)
+    milestones = [cold.get(k) for k in ("import_done", "data_ready", "first_pose_s", "chunk_pose_s")]
+    if cold["rc"] != 0 or None in milestones or milestones != sorted(milestones) or cold["native_builds"] != 0:
+        fail(f"cold_start: {cold}")
+    print(f"cold_start (fresh process, after phase 1's build): import {cold['import_done']:.2f} s, data "
+          f"{cold['data_ready']:.2f} s, first pose {cold['first_pose_s']:.2f} s, chunk of {cold_start.N_SCANS} "
+          f"{cold['chunk_pose_s']:.2f} s, process wall {cold['fresh_process_wall_s']:.2f} s; native builds before "
+          f"the first pose {cold['native_builds']}")
+    rec["cold_start"] = cold
+
+    print(f"transfer ledger of phase 3's {N_SCANS}-scan run_bag before the gather: {ledger_flag['h2d_calls']} "
+          f"host-to-device call of {ledger_flag['h2d_bytes']} B, {ledger_flag['d2h_bytes']} B read back, "
+          f"{ledger_flag['host_syncs']} host syncs (the batches lie on the card: the commit stacks them there)")
+    rec["ledger_flagship"] = ledger_flag
+
+    cfg = PipelineConfig()
+    state, _ = runner.run_bag(run.batches[:N_WARMUP], cfg, device=device)
+    sites = implicit_syncs(lambda: runner.run_bag(run.batches[N_WARMUP:N_WARMUP + N_PROFILE_SCANS], cfg,
+                                                  state=state, device=device))
+    n_sync = sum(sites.values())
+    print(f"implicit host syncs over {N_PROFILE_SCANS} flagship scans (set_sync_debug_mode('warn')): {n_sync} "
+          f"({n_sync / N_PROFILE_SCANS:.1f} a scan) at " + ", ".join(f"{k} x{v}" for k, v in sites.most_common()))
+    rec["implicit_syncs"] = {"n_scans": N_PROFILE_SCANS, "total": n_sync, "sites": dict(sites.most_common())}
+
+    out, _ = run_tool("profile_step", ["--steps", str(PROFILE_STEPS)])
+    prof = json.loads(out)
+    if not prof["finite"] or prof["timing"]["n"] != PROFILE_STEPS:
+        fail(f"profile_step: {prof}")
+    print(f"profile_step over {PROFILE_STEPS} steps: p50 {prof['timing']['p50_ms']:.2f} ms, p95 "
+          f"{prof['timing']['p95_ms']:.2f} ms, peak {prof['compute']['peak_allocated_bytes'] / 2**20:.1f} MiB "
+          f"({prof['compute']['peak_above_start_bytes'] / 2**20:.1f} MiB above the step's start), first scan "
+          f"{prof['first_scan_s']:.3f} s, matmul FLOPs {prof['compute']['matmul_flops']}; top kernels "
+          + ", ".join(f"{kernel_census.family(k)} x{v}" for k, v in list(prof["top_kernels"].items())[:5]))
+    rec["profile_step"] = prof
+
+    census_path = os.path.join(OUT_DIR, "kernel_census.json")
+    run_tool("kernel_census", ["--scans", str(N_WARMUP + 1), "--json", census_path])
+    census = json.load(open(census_path))
+    total = census["launch_calls_per_scan"]
+    d = abs(total - launches_phase8) / launches_phase8
+    print(f"kernel_census of scan {N_WARMUP} (after {N_WARMUP}): {total} launch calls ({d:.2%} from phase 8's "
+          f"{launches_phase8:.0f} a scan), {census['attributed_launches']} attributed, {census['aten_ops']} aten ops, "
+          f"{census['device_kernels_per_scan']} device kernels, {census['d2d_copies']} device-to-device copies of "
+          f"{census['d2d_copy_bytes']} B, {census['scalar_output_launches']} launches with 0-d outputs, "
+          f"census {census['census_s']:.1f} s; top functions by launches: "
+          + "; ".join(f"{r['function']} {r['launches']} ({r['device_us']:.0f} us)" for r in census["top_functions"]))
+    if d > CENSUS_LAUNCH_RTOL or census["attributed_launches"] != total:
+        fail(f"kernel_census: {total} launch calls ({census['attributed_launches']} attributed) against phase 8's "
+             f"{launches_phase8:.0f} (bound {CENSUS_LAUNCH_RTOL:.0%})")
+    rec["kernel_census"] = {k: v for k, v in census.items() if k != "top_functions"}
+    rec["kernel_census"]["top_functions"] = census["top_functions"]
+
+    scatter = microbench_scatter.run(device)
+    groups = {}
+    for r in scatter:
+        groups.setdefault("surfel" if "surfel" in r["name"] else "fuse", []).append(r["checksum"])
+    spread = {g: max(v) - min(v) for g, v in groups.items()}
+    print("microbench_scatter (CUDA events, 20 calls): " + ", ".join(
+        f"{r['name']} {r['ms']:.4f} ms (checksum {r['checksum']:.4f})" for r in scatter)
+        + f"; checksum spread fuse {spread['fuse']:.2e}, surfel {spread['surfel']:.2e}")
+    if max(spread.values()) > SCATTER_CHECKSUM_TOL:
+        fail(f"microbench_scatter: checksums disagree by {spread} (tolerance {SCATTER_CHECKSUM_TOL})")
+    rec["microbench_scatter"] = [{k: r[k] for k in ("name", "ms", "checksum")} for r in scatter]
+    rec["seconds"] = time.perf_counter() - t_phase
+    print(f"[runtime tools: {rec['seconds']:.1f} s in phase 17]")
+    return rec
+
+
 def main(argv=None) -> None:
     import argparse
 
@@ -1991,7 +2111,7 @@ def main(argv=None) -> None:
     args = p.parse_args(argv)
     full = args.phases is None
     if not full and sorted({int(x) for x in args.phases.split(",")}) != [1, 2, 15]:
-        fail("--phases takes 1,2,15 (phases 3-14 and 16 run together, with no --phases)")
+        fail("--phases takes 1,2,15 (phases 3-14, 16 and 17 run together, with no --phases)")
 
     # 1. device
     if not torch.cuda.is_available():
@@ -2019,7 +2139,7 @@ def main(argv=None) -> None:
     sweep_poses = None
     if full:
         # 3-4. the flagship path and determinism
-        run, cfg, out_flag, ms_flag, launches_flag, ate_flag = phase_flagship(device)
+        run, cfg, out_flag, ms_flag, launches_flag, ate_flag, ledger_flag = phase_flagship(device)
         phase_determinism(device, run, cfg)
         lap("phases 3-4")
 
@@ -2082,7 +2202,7 @@ def main(argv=None) -> None:
             "sweep": sweep_rec,
         }
     else:
-        print("phases 3-14 and 16 skipped (--phases 1,2,15): the kernels line holds phase 15's instances")
+        print("phases 3-14, 16 and 17 skipped (--phases 1,2,15): the kernels line holds phase 15's instances")
 
     # 15. the sweep over a device mesh
     mesh_rec, launches_mesh = phase_mesh(device, sweep_poses)
@@ -2095,6 +2215,11 @@ def main(argv=None) -> None:
         # 16. the tools on the card's host, on phase 11's bag and run
         paths["tools"] = phase_tools()
         lap("phase 16")
+
+        # 17. the measurement layer: boot, ledger, syncs, step profile, census, scatter
+        paths["runtime"] = phase_runtime(device, run, ledger_flag,
+                                         paths["per_hypothesis"]["flagship_profile"]["launch_calls_per_scan"])
+        lap("phase 17")
 
     kernels = []
     for key, rec in sk.items():

@@ -132,6 +132,7 @@ def main(argv=None) -> dict:
     from gcslam_torch.models.manifest import device_runtime_cert, write_manifest
     from gcslam_torch.outputs import dashboard, diagnostics, splat_export, tum
     from gcslam_torch.utils.device import resolve_device
+    from gcslam_torch.utils.profiling import COUNTERS, device_runtime_cert as ledger_cert
 
     device = resolve_device("cpu" if args.cpu else None)
     out_dir = args.out or time.strftime("results/gc_%Y%m%d_%H%M%S")
@@ -190,6 +191,7 @@ def main(argv=None) -> dict:
 
         spawn = args.live_view == "spawn"
         viewer = LiveViewer(os.path.join(out_dir, "live") if spawn else args.live_view, spawn=spawn)
+    COUNTERS.reset()
     t0 = time.perf_counter()
     if args.chunk > 0:
         state, out = runner.run_chunked(batches, cfg, chunk=args.chunk, loop_detector=detector,
@@ -202,9 +204,9 @@ def main(argv=None) -> dict:
             status_path=os.path.join(out_dir, "status.jsonl"), live_viewer=viewer, device=device)
     else:
         state, out = runner.run_bag(batches, cfg, device=device)
-    poses = out.pose.cpu().numpy()
-    stamps = out.stamp.cpu().numpy()
+    poses = COUNTERS.to_host(out.pose)
     wall = time.perf_counter() - t0
+    stamps = COUNTERS.to_host(out.stamp)
 
     tum.write_tum(os.path.join(out_dir, "trajectory.tum"), stamps, poses)
     metrics = {
@@ -212,7 +214,9 @@ def main(argv=None) -> dict:
         "load_s": round(load_s, 3),
         "wall_s": round(wall, 3),
         "device": device.type,
-        "device_runtime": device_runtime_cert(device),
+        # the device inventory beside the measured transfer ledger: every
+        # copy the runner made and every value read back went through it
+        "device_runtime": {**device_runtime_cert(device), **ledger_cert()},
     }
     if gt_poses is not None:
         tum.write_tum(os.path.join(out_dir, "ground_truth.tum"), gt_times, gt_poses)

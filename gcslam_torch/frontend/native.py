@@ -30,6 +30,8 @@ from typing import Iterator
 
 import numpy as np
 
+from gcslam_torch.utils.profiling import COUNTERS
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCE = CSRC / "bag_decode.cpp"
 BUILD = CSRC / "build"
@@ -92,6 +94,7 @@ def build() -> Path:
             raise RuntimeError(f"building the bag decoder failed ({proc.returncode}): {' '.join(cmd)}\n"
                                f"{proc.stdout}{proc.stderr}")
         os.replace(tmp, lib_path)
+        COUNTERS.count_build()
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)

@@ -131,7 +131,7 @@ def _quat_to_rotvec(q: np.ndarray) -> np.ndarray:
     return xyz * (theta / n if n > 1e-12 else 2.0)
 
 
-def _R_to_rotvec(R: np.ndarray) -> np.ndarray:
+def cdrless_rotvec(R: np.ndarray) -> np.ndarray:
     tr = np.trace(R)
     cos = np.clip(0.5 * (tr - 1), -1, 1)
     vex = 0.5 * np.array([R[2, 1] - R[1, 2], R[0, 2] - R[2, 0], R[1, 0] - R[0, 1]])
@@ -229,7 +229,7 @@ def _smoothed_anchor(odom_t: np.ndarray, odom_pos: np.ndarray, odom_quat: np.nda
     M = (Rs * ws[:, None, None]).sum(0)
     U, _, Vt = np.linalg.svd(M)
     fix = np.diag([1.0, 1.0, np.sign(np.linalg.det(U @ Vt))])
-    return np.concatenate([t_mean, _R_to_rotvec(U @ fix @ Vt)])
+    return np.concatenate([t_mean, cdrless_rotvec(U @ fix @ Vt)])
 
 
 class _CameraStream:
@@ -499,14 +499,14 @@ def load_bag(
         if len(odom_t):
             oi = int(np.argmin(np.abs(odom_t - t_scan)))
             R_o = _rotvec_R(_quat_to_rotvec(odom_quat[oi]))
-            odom_pose = np.concatenate([R_a.T @ (odom_pos[oi] - anchor[:3]), _R_to_rotvec(R_a.T @ R_o)])
+            odom_pose = np.concatenate([R_a.T @ (odom_pos[oi] - anchor[:3]), cdrless_rotvec(R_a.T @ R_o)])
             if k == 0 or prev_odom_idx is None:
                 odom_rel = np.zeros(6)
                 odom_rel_cov = 1e12 * np.eye(6)
             else:
                 po = prev_odom_idx
                 R_po = _rotvec_R(_quat_to_rotvec(odom_quat[po]))
-                odom_rel = np.concatenate([R_po.T @ (odom_pos[oi] - odom_pos[po]), _R_to_rotvec(R_po.T @ R_o)])
+                odom_rel = np.concatenate([R_po.T @ (odom_pos[oi] - odom_pos[po]), cdrless_rotvec(R_po.T @ R_o)])
                 # Delta covariance: dead-reckoned odometry carries a
                 # cumulative pose covariance, so the drift accrued between
                 # the two stamps is the (clipped, diagonal) increment; the

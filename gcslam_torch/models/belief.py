@@ -41,6 +41,28 @@ def identity_prior(stamp: float = 0.0, device=None) -> Belief:
     )
 
 
+def from_moments(
+    X_anchor: torch.Tensor,
+    mean: torch.Tensor,
+    cov: torch.Tensor,
+    stamp: torch.Tensor,
+    eps_psd: float = C.EPS_PSD,
+    eps_lift: float = C.EPS_LIFT,
+) -> Belief:
+    """Moment form -> info form with PSD projections (belief.py:255-326)."""
+    cov_psd, _ = linalg.domain_projection_psd(cov, eps_psd)
+    L, _ = linalg.spd_inverse_lifted(cov_psd, eps_lift)
+    L_psd, _ = linalg.domain_projection_psd(L, eps_psd)
+    mean = torch.as_tensor(mean, dtype=BELIEF_DTYPE, device=L_psd.device)
+    return Belief(
+        X_anchor=torch.as_tensor(X_anchor, dtype=BELIEF_DTYPE, device=L_psd.device),
+        z_lin=mean,
+        L=L_psd,
+        h=se3.mv(L_psd, mean),
+        stamp=torch.as_tensor(stamp, dtype=TIME_DTYPE, device=L_psd.device),
+    )
+
+
 def mean_increment(b: Belief, eps_lift: float = C.EPS_LIFT) -> torch.Tensor:
     x, _ = linalg.spd_solve_lifted(b.L, b.h, eps_lift)
     return x

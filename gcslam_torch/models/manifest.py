@@ -2,7 +2,9 @@
 every behavioural setting, emitted as JSON at startup ("no silent
 defaults", reference backend/pipeline.py:1629-1793): chart, dtypes,
 budgets, epsilons, backends, the frontend's native or Python route, every
-config field, and the device the run is on. The JAX package's XLA cost analysis and compile-cache counts have no
+config field, and the device the run is on. compute_cert measures one
+call of the step where the JAX package reads XLA's cost and memory
+analysis of the compiled program; its compile-cache counts have no
 counterpart here and are left out."""
 
 from __future__ import annotations
@@ -87,6 +89,49 @@ def runtime_manifest(cfg: PipelineConfig) -> Dict[str, Any]:
     # every config field is behavioural -> all of them go in the manifest
     m.update({f"config.{k}": v for k, v in dataclasses.asdict(cfg).items()})
     return m
+
+
+def compute_cert(fn, *args) -> Dict[str, Any]:
+    """ComputeCert (counterpart of the JAX package's compute_cert, reference
+    certificates.py:318-360), measured on one call fn(*args):
+      - matmul_flops: the FLOPs torch.utils.flop_counter.FlopCounterMode
+        counts. It counts matrix products and convolutions only: the
+        elementwise work, reductions, sorts, scatters, factorizations and
+        the Sinkhorn kernel are left out, so this is a floor on the call's
+        FLOPs, not XLA's whole-program count;
+      - argument_bytes / output_bytes: the bytes of the tensors in `args`
+        and in the result;
+      - peak_allocated_bytes: the card's peak allocated memory during the
+        call (torch.cuda.max_memory_allocated after
+        reset_peak_memory_stats), arguments included, and
+        peak_above_start_bytes, that peak less what was allocated when the
+        call began (the call's own working set and outputs). Both None when
+        the arguments are not on the card.
+    Returns (cert, the call's result)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from gcslam_torch.utils.tree import tree_leaves
+
+    leaves = tree_leaves(list(args))
+    dev = next((x.device for x in leaves if x.is_cuda), None)
+    if dev is not None:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        start = torch.cuda.memory_allocated(dev)
+    with FlopCounterMode(display=False) as counter:
+        out = fn(*args)
+    cert: Dict[str, Any] = {
+        "matmul_flops": int(counter.get_total_flops()),
+        "argument_bytes": int(sum(x.nbytes for x in leaves)),
+        "output_bytes": int(sum(x.nbytes for x in tree_leaves(out))),
+        "peak_allocated_bytes": None,
+        "peak_above_start_bytes": None,
+    }
+    if dev is not None:
+        torch.cuda.synchronize(dev)
+        peak = torch.cuda.max_memory_allocated(dev)
+        cert.update(peak_allocated_bytes=int(peak), peak_above_start_bytes=int(peak - start))
+    return cert, out
 
 
 def manifest_json(cfg: PipelineConfig, device) -> str:

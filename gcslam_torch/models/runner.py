@@ -12,7 +12,12 @@ per-scan outputs stacked along a leading time axis.
     run_bag's bit for bit when no loop fires).
 
 All of them run the same scan_step call sequence; they differ only in what
-the host does between steps.
+the host does between steps. Every copy they make to the device and every
+value they read back goes through the transfer ledger
+(utils/profiling.COUNTERS), as the JAX package's runners do: run_bag and
+run_scan commit the whole bag in one call and read nothing back;
+run_stream commits scan by scan, run_chunked all full windows at once and
+the remainder scan by scan.
 """
 
 from __future__ import annotations
@@ -28,11 +33,12 @@ import torch
 from gcslam_torch import constants as C
 from gcslam_torch.models.belief import Belief
 from gcslam_torch.models.config import PipelineConfig
-from gcslam_torch.models.scan_io import ScanBatch
+from gcslam_torch.models.scan_io import ScanBatch, stack_scan_batches
 from gcslam_torch.models.scan_step import ScanTape, StepOutput, StepState, init_state, scan_step, state_to
 from gcslam_torch.ops import linalg
 from gcslam_torch.ops.certs import TRIGGERS
 from gcslam_torch.utils.device import resolve_device
+from gcslam_torch.utils.profiling import COUNTERS
 
 
 def stack_outputs(outs: List[StepOutput]) -> StepOutput:
@@ -71,16 +77,29 @@ def _with_loop(batch: ScanBatch, loop_pose, loop_cov, loop_weight) -> ScanBatch:
 
 
 def _host(x: torch.Tensor) -> np.ndarray:
+    """A host copy of a value the caller handed in (not counted: the JAX
+    package reads the caller's arrays in place)."""
     return x.detach().cpu().numpy()
 
 
 def _log_live(viewer, i: int, batch: ScanBatch, out: StepOutput, state: StepState, config: PipelineConfig) -> None:
-    """Scan i to the live viewer: host copies of its pose, stamp and
-    points, and every map_every scans a map snapshot."""
-    viewer.log_scan(i, float(out.stamp), _host(out.pose), points=_host(batch.points),
-                    weights=_host(batch.point_weights), map_valid_total=float(out.tape.map_valid_total))
+    """Scan i to the live viewer: its stamp and pose read back, the points
+    of the caller's batch, and every map_every scans a map snapshot."""
+    viewer.log_scan(i, float(COUNTERS.to_host(out.stamp)), COUNTERS.to_host(out.pose),
+                    points=_host(batch.points), weights=_host(batch.point_weights),
+                    map_valid_total=float(out.tape.map_valid_total))
     if config.with_map:
         viewer.maybe_log_map(i, state.atlas)
+
+
+def _replay(state: StepState, stacked: ScanBatch, config: PipelineConfig) -> Tuple[StepState, StepOutput]:
+    """scan_step over each scan of a device-resident stacked bag."""
+    outs = []
+    with torch.no_grad():
+        for i in range(_n_scans(stacked)):
+            state, out = scan_step(state, _scan_at(stacked, i), config)
+            outs.append(out)
+    return state, stack_outputs(outs)
 
 
 def run_bag(
@@ -89,15 +108,11 @@ def run_bag(
     state: Optional[StepState] = None,
     device=None,
 ) -> Tuple[StepState, StepOutput]:
-    """Replay a bag scan by scan on `device` (default: the CUDA card); the
-    batches and a given state are moved there."""
+    """Replay a bag scan by scan on `device` (default: the CUDA card): the
+    batches are stacked where they lie and committed to the device in one
+    ledger call; a given state is moved there."""
     state, device = _start(config, state, device)
-    outs = []
-    with torch.no_grad():
-        for batch in batches:
-            state, out = scan_step(state, batch.to(device), config)
-            outs.append(out)
-    return state, stack_outputs(outs)
+    return _replay(state, COUNTERS.to_device(stack_scan_batches(batches), device), config)
 
 
 def run_scan(
@@ -107,9 +122,10 @@ def run_scan(
     device=None,
 ) -> Tuple[StepState, StepOutput]:
     """Replay a ScanBatch stacked along a leading time axis (the JAX
-    package's whole-bag lax.scan); state0 None starts from init_state."""
-    n = _n_scans(stacked_batch)
-    return run_bag([_scan_at(stacked_batch, i) for i in range(n)], config, state0, device)
+    package's whole-bag lax.scan), committed in one ledger call; state0
+    None starts from init_state."""
+    state, device = _start(config, state0, device)
+    return _replay(state, COUNTERS.to_device(stacked_batch, device), config)
 
 
 class DeadEndMonitor:
@@ -214,20 +230,20 @@ def run_stream(
     try:
         with torch.no_grad():
             for i in range(n):
-                batch = _scan_at(batches, i).to(device)
+                batch = _scan_at(batches, i)
                 if loop_detector is not None and i > 0:
                     hit = loop_detector.detect(i, pose_prev, _host(batch.points), _host(batch.point_weights))
                     if hit is not None:
                         batch = _with_loop(batch, *hit)
-                state, out = scan_step(state, batch, config)
+                state, out = scan_step(state, COUNTERS.to_device(batch, device), config)
                 outs.append(out)
                 if loop_detector is not None:
-                    pose_prev = _host(out.pose)
+                    pose_prev = COUNTERS.to_host(out.pose)
                     pose_cov = None
                     if i % loop_detector.cfg.keyframe_every == 0:
                         Sig, _ = linalg.spd_inverse_lifted(Belief(*[x[0] for x in state.beliefs]).L,
                                                            config.eps_lift)
-                        pose_cov = _host(Sig)[C.IDX_POSE, C.IDX_POSE]
+                        pose_cov = COUNTERS.to_host(Sig)[C.IDX_POSE, C.IDX_POSE]
                     loop_detector.store(i, pose_prev, _host(batch.points), _host(batch.point_weights), pose_cov)
                 if live_viewer is not None:
                     _log_live(live_viewer, i, batch, out, state, config)
@@ -242,12 +258,12 @@ def run_stream(
                 if status_f is not None and (i % status_every == 0 or last):
                     wall = time.time() - t_start
                     tape = out.tape
-                    pose_xyz = _host(out.pose)[:3]
+                    pose_xyz = COUNTERS.to_host(out.pose)[:3]
                     n_trig = float(tape.cert_n_triggers)
                     ess = float(tape.support_ess_total)
                     status_f.write(json.dumps({
                         "scan": i,
-                        "stamp": float(out.stamp),
+                        "stamp": float(COUNTERS.to_host(out.stamp)),
                         "pose_xyz": [round(float(x), 4) for x in pose_xyz],
                         "map_valid_total": float(tape.map_valid_total),
                         "n_triggers_scan": n_trig,
@@ -294,22 +310,26 @@ def run_chunked(
     state, device = _start(config, state, device)
     n = _n_scans(batches)
     n_full = (n // chunk) * chunk
+    if n_full:
+        head = (ScanBatch(*[x[:n_full] for x in batches]) if isinstance(batches, ScanBatch)
+                else stack_scan_batches(batches[:n_full]))
+        windows = COUNTERS.to_device(head, device)
     outs = []
     pending = None
     try:
         with torch.no_grad():
             for c in range(0, n_full, chunk):
                 for i in range(c, c + chunk):
-                    batch = _scan_at(batches, i).to(device)
+                    batch = _scan_at(windows, i)
                     if i == c and pending is not None and pending[2] > 0:
                         batch = _with_loop(batch, *pending)
                     state, out = scan_step(state, batch, config)
                     outs.append(out)
                     if live_viewer is not None:
-                        _log_live(live_viewer, i, batch, out, state, config)
+                        _log_live(live_viewer, i, _scan_at(batches, i), out, state, config)
                 pending = None
                 if loop_detector is not None:
-                    poses = _host(torch.stack([o.pose for o in outs[c:c + chunk]]))
+                    poses = COUNTERS.to_host(torch.stack([o.pose for o in outs[c:c + chunk]]))
                     for j in range(chunk):
                         i = c + j
                         if i % loop_detector.cfg.keyframe_every:
@@ -321,8 +341,8 @@ def run_chunked(
                         pending = loop_detector.detect(c + chunk, poses[-1], _host(nb.points),
                                                        _host(nb.point_weights))
             for i in range(n_full, n):
-                batch = _scan_at(batches, i).to(device)
-                state, out = scan_step(state, batch, config)
+                batch = _scan_at(batches, i)
+                state, out = scan_step(state, COUNTERS.to_device(batch, device), config)
                 outs.append(out)
                 if live_viewer is not None:
                     _log_live(live_viewer, i, batch, out, state, config)

@@ -18,6 +18,8 @@ import tempfile
 from pathlib import Path
 from typing import Dict, List, Sequence
 
+from gcslam_torch.utils.profiling import COUNTERS
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD = CSRC / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -63,11 +65,14 @@ class KernelLibrary:
         self.build_log = ""  # nvcc's output of the build made by this process
         self._handle = None
 
+    def path(self) -> Path:
+        """The library's path: named by a hash of the source and the flags."""
+        digest = hashlib.sha256(self.source.read_bytes() + " ".join(self.flags).encode()).hexdigest()[:12]
+        return BUILD / f"lib{self.stem}_{digest}.so"
+
     def build(self) -> Path:
         """Compile the source unless its library exists; returns its path."""
-        src = self.source.read_bytes()
-        digest = hashlib.sha256(src + " ".join(self.flags).encode()).hexdigest()[:12]
-        lib_path = BUILD / f"lib{self.stem}_{digest}.so"
+        lib_path = self.path()
         if lib_path.exists():
             return lib_path
         BUILD.mkdir(parents=True, exist_ok=True)
@@ -80,6 +85,7 @@ class KernelLibrary:
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed on {self.source.name} ({proc.returncode}):\n{self.build_log}")
             os.replace(tmp, lib_path)
+            COUNTERS.count_build()
         finally:
             if os.path.exists(tmp):
                 os.remove(tmp)

@@ -109,6 +109,18 @@ def spd_inverse_lifted(L: torch.Tensor, eps_lift: float = C.EPS_LIFT) -> Tuple[t
     return chol_inv.transpose(-1, -2) @ chol_inv, eps_lift * d
 
 
+def inv_mass(m: torch.Tensor, eps_mass: float = C.EPS_MASS) -> Tuple[torch.Tensor, torch.Tensor]:
+    """1/(m + eps) and the epsilon ratio; total even for m <= 0."""
+    denom = m + eps_mass + torch.finfo(m.dtype).eps
+    return 1.0 / denom, eps_mass / denom
+
+
+def clamp(x: torch.Tensor, lo: float, hi: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x clipped to [lo, hi] and how far each entry moved."""
+    clamped = torch.clamp(x, lo, hi)
+    return clamped, torch.abs(clamped - x)
+
+
 def safe_normalize(v: torch.Tensor, eps: float = C.EPS_MASS) -> Tuple[torch.Tensor, torch.Tensor]:
     norm = torch.linalg.vector_norm(v, dim=-1, keepdim=True)
     denom = norm + eps

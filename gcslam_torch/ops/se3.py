@@ -36,6 +36,11 @@ def skew(v: torch.Tensor) -> torch.Tensor:
     )
 
 
+def vee(W: torch.Tensor) -> torch.Tensor:
+    """Inverse of skew for (..., 3, 3) -> (..., 3)."""
+    return torch.stack([W[..., 2, 1], W[..., 0, 2], W[..., 1, 0]], dim=-1)
+
+
 def _theta(phi: torch.Tensor):
     theta_sq = torch.sum(phi * phi, dim=-1)
     return torch.sqrt(theta_sq), theta_sq
@@ -101,6 +106,28 @@ def _BC_coeffs(theta, theta_sq):
     return B, C
 
 
+def so3_right_jacobian(phi: torch.Tensor) -> torch.Tensor:
+    """Jr(phi) = I - B [phi]x + C [phi]x^2 (reference se3_jax.py:68-103)."""
+    theta, theta_sq = _theta(phi)
+    K = skew(phi)
+    B, C = _BC_coeffs(theta, theta_sq)
+    return eye3(phi) - B[..., None, None] * K + C[..., None, None] * (K @ K)
+
+
+def so3_right_jacobian_inv(phi: torch.Tensor) -> torch.Tensor:
+    """Jr^{-1}(phi) = I + 1/2 [phi]x + D [phi]x^2 (reference se3_jax.py:107-134)."""
+    theta, theta_sq = _theta(phi)
+    K = skew(phi)
+    eps = 1e-12
+    denom = 2.0 * theta * torch.sin(theta) + eps
+    D = torch.where(
+        theta < 1e-4,
+        1.0 / 12.0 + theta_sq / 720.0,
+        1.0 / (theta_sq + eps) - (1.0 + torch.cos(theta)) / denom,
+    )
+    return eye3(phi) + 0.5 * K + D[..., None, None] * (K @ K)
+
+
 def se3_V(phi: torch.Tensor) -> torch.Tensor:
     theta, theta_sq = _theta(phi)
     K = skew(phi)
@@ -152,3 +179,41 @@ def se3_inverse(a: torch.Tensor) -> torch.Tensor:
 def se3_relative(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """b^{-1} o a."""
     return se3_compose(se3_inverse(b), a)
+
+
+def se3_plus(x: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
+    """Retraction: T(x) o T(delta) where delta is a 6D pose increment."""
+    return se3_compose(x, delta)
+
+
+def se3_minus(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+    """delta such that x2 (+) delta = x1 (pose difference, not twist)."""
+    return se3_relative(x1, x2)
+
+
+def se3_adjoint(xi: torch.Tensor) -> torch.Tensor:
+    """Ad_T (6x6) for pose [t, rotvec] acting on twists [rho, phi]:
+    Ad = [[R, [t]x R], [0, R]], so that Exp(Ad_T xi) = T Exp(xi) T^{-1}."""
+    R = so3_exp(xi[..., 3:6])
+    tR = skew(xi[..., :3]) @ R
+    top = torch.cat([R, tR], dim=-1)
+    bot = torch.cat([torch.zeros_like(R), R], dim=-1)
+    return torch.cat([top, bot], dim=-2)
+
+
+def se3_cov_compose(cov_a: torch.Tensor, cov_b: torch.Tensor, T_a: torch.Tensor) -> torch.Tensor:
+    """Compose covariances under T_out = T_a o T_b."""
+    Ad = se3_adjoint(T_a)
+    return cov_a + Ad @ cov_b @ Ad.transpose(-1, -2)
+
+
+def se3_identity(dtype=None, device=None) -> torch.Tensor:
+    from gcslam_torch.utils.dtypes import BELIEF_DTYPE
+
+    return torch.zeros(6, dtype=dtype or BELIEF_DTYPE, device=device)
+
+
+def apply_pose_to_points(pose: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
+    """p' = R p + t for pose (..., 6) and points (..., N, 3)."""
+    R = so3_exp(pose[..., 3:6])
+    return torch.einsum("...ij,...nj->...ni", R, points) + pose[..., None, :3]

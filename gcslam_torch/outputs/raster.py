@@ -45,6 +45,16 @@ def build():
     return _KERNEL.build()
 
 
+def library_path():
+    """Where build() puts the library (it exists once built)."""
+    return _KERNEL.path()
+
+
+def load():
+    """The loaded library (csrc/raster.cu built first if needed)."""
+    return _KERNEL.lib()
+
+
 def build_log() -> str:
     """nvcc's output of the build made by this process ('' if none was needed)."""
     return _KERNEL.build_log

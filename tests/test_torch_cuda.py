@@ -471,3 +471,72 @@ def test_eval_run_precision_f32_on_cuda(cuda, tmp_path):
     manifest = json.load(open(tmp_path / "run" / "runtime_manifest.json"))
     assert manifest["belief_dtype"] == "float32" and manifest["device_runtime"]["platform"] == "cuda"
     assert np.isfinite(np.loadtxt(tmp_path / "run" / "trajectory.tum")).all()
+
+
+def test_run_bag_commits_host_batches_once(cuda):
+    """Host batches replayed on the card: one host-to-device commit of every
+    field's bytes, nothing read back and no host sync before the gather;
+    poses bit-equal to the replay of the same batches already on the card."""
+    from gcslam_torch.utils.profiling import COUNTERS
+
+    cfg = PipelineConfig(**SMALL)
+    host = generate(SyntheticConfig(n_scans=4, n_points=1024), device="cpu").batches
+    COUNTERS.reset()
+    _, out = runner.run_bag(host, cfg, device=cuda)
+    ledger = COUNTERS.cert()
+    assert (ledger["h2d_calls"], ledger["d2h_bytes"], ledger["host_syncs"]) == (1, 0, 0)
+    assert ledger["h2d_bytes"] == sum(x.nbytes for b in host for x in b)
+    _, out2 = runner.run_bag([b.to(cuda) for b in host], cfg, device=cuda)
+    assert torch.equal(out.pose, out2.pose)
+
+
+def test_compute_cert_reads_peak_memory_on_the_card(cuda):
+    from gcslam_torch.models.manifest import compute_cert
+
+    a = torch.randn(1024, 1024, device=cuda)
+    cert, out = compute_cert(lambda x: x @ x, a)
+    assert cert["matmul_flops"] == 2 * 1024 ** 3
+    assert cert["peak_allocated_bytes"] >= a.nbytes + out.nbytes
+    assert cert["peak_above_start_bytes"] >= out.nbytes
+
+
+def test_kernel_census_counts_the_profilers_launches(cuda):
+    """The census's launch calls of one SMALL scan are profile_record's on
+    the same scan from the same state (one definition of a launch), to
+    0.1 %: under the census's dispatch mode the step makes 3 launches more
+    (27,119 against 27,116 at SMALL, 27,132 against 27,129 on a flagship
+    scan, on the H100); and every launch is attributed to a function."""
+    from gcslam_torch.models.scan_step import scan_step
+    from gcslam_torch.tools import kernel_census
+    from gcslam_torch.utils.cuda_profile import profile_record
+
+    cfg = PipelineConfig(**SMALL)
+    run = generate(SyntheticConfig(n_scans=4, n_points=1024), device=cuda)
+    state, _ = runner.run_bag(run.batches[:3], cfg, device=cuda)
+    with torch.no_grad():
+        ref = profile_record(lambda: scan_step(state, run.batches[3], cfg), 1)
+        rep = kernel_census.census(lambda: scan_step(state, run.batches[3], cfg), True)
+    assert rep["launch_calls_per_scan"] == rep["attributed_launches"]
+    assert abs(rep["launch_calls_per_scan"] - ref["launch_calls_per_scan"]) <= 1e-3 * ref["launch_calls_per_scan"]
+    assert rep["device_kernels_per_scan"] > 0 and rep["d2d_copies"] >= 0
+    top = rep["top_functions"]
+    assert sum(r["launches"] for r in top) <= rep["launch_calls_per_scan"]
+    assert [r["launches"] for r in top] == sorted((r["launches"] for r in top), reverse=True)
+    assert top[0]["function"].startswith("gcslam_torch/") and top[0]["device_us"] > 0
+
+
+def test_microbench_scatter_on_the_card(cuda):
+    """Every strategy at the production shapes on the card; the checksums
+    agree to the JAX tool's three decimals, and the production route
+    (index_put with accumulate: sorted, in order) is bit-reproducible where
+    index_add's atomics need not be."""
+    from gcslam_torch.tools import microbench_scatter
+
+    rows = microbench_scatter.run(cuda, reps=2)
+    for group in ("surfel", "TM"):
+        chk = [r["checksum"] for r in rows if group in r["name"] or (group == "TM" and "pool" in r["name"])]
+        assert max(chk) - min(chk) <= 1e-3
+    again = {r["name"]: r["out"] for r in microbench_scatter.run(cuda, reps=1)}
+    for r in rows:
+        if r["name"].startswith("binned_scatter_accumulate"):
+            assert torch.equal(r["out"], again[r["name"]])

@@ -112,15 +112,23 @@ def test_eval_run_audit_has_the_same_checks_all_passing(runs):
 
 
 def test_eval_run_metrics_leave_out_the_xla_counters(runs):
-    """metrics.json names the device and the port's timings; the JAX
-    package's XLA-only counters (jit-cache sizes, transfer ledger, compile
-    wall time) are not there, not even as placeholders."""
-    tdir, tm = runs["torch"]
+    """metrics.json names the device and the port's timings; its
+    device_runtime carries the transfer ledger, equal to the JAX run's
+    (both replay the bag through run_bag: one commit of the same bytes,
+    the poses and stamps read back), beside the device inventory; the JAX
+    package's XLA-only counters (jit-cache sizes, x64 status, compile wall
+    time) are not there, not even as placeholders."""
+    (jdir, jm), (tdir, tm) = runs["jax"], runs["torch"]
     on_disk = json.load(open(os.path.join(tdir, "metrics.json")))
     assert on_disk["ate"] == tm["ate"] and on_disk["device"] == "cpu"
     assert {"load_s", "wall_s", "device_runtime", "n_splats"} <= set(on_disk)
-    assert not {"run_scan_compiles", "step_compiles", "jit_cache_entries", "h2d_bytes"} & set(
-        on_disk["device_runtime"])
+    drt, jdrt = on_disk["device_runtime"], jm["device_runtime"]
+    ledger = ("h2d_bytes", "h2d_calls", "d2h_bytes", "host_syncs")
+    assert {k: drt[k] for k in ledger} == {k: jdrt[k] for k in ledger}
+    assert drt["h2d_calls"] == 1 and drt["host_syncs"] == 2 and drt["native_builds"] >= 0
+    assert {"platform", "n_devices", "device_kinds"} <= set(drt)
+    assert not {"run_scan_compiles", "step_compiles", "jit_cache_entries", "x64_enabled",
+                "compilation_cache_entries"} & set(drt)
     assert "wall_s_including_compile" not in on_disk
     rows = open(os.path.join(tdir, "metrics.csv")).read().splitlines()
     assert rows[0] == "key,value" and any(r.startswith("ate.translation.rmse,") for r in rows)

@@ -37,6 +37,14 @@ def test_port_imports_without_jax():
         "import gcslam_torch.parallel.sweep, gcslam_torch.tools.attribute_step, gcslam_torch.tools.ablate_gn_shared\n"
         "import gcslam_torch.utils.cuda_profile, gcslam_torch.parallel.mesh, gcslam_torch.parallel.dryrun\n"
         "import gcslam_torch.ops.collectives, gcslam_torch.utils.tree, gcslam_torch.outputs.svg_plot\n"
+        "import gcslam_torch.utils.profiling, gcslam_torch.tools.profile_step, gcslam_torch.tools.kernel_census\n"
+        "import gcslam_torch.tools.warm_cache, gcslam_torch.tools.cold_start, gcslam_torch.tools.microbench_scatter\n"
+        "from gcslam_torch.models.manifest import compute_cert\n"
+        "from gcslam_torch.ops.se3 import vee, so3_right_jacobian, so3_right_jacobian_inv, se3_plus, se3_minus\n"
+        "from gcslam_torch.ops.se3 import se3_adjoint, se3_cov_compose, se3_identity, apply_pose_to_points\n"
+        "from gcslam_torch.ops.linalg import inv_mass, clamp\n"
+        "from gcslam_torch.models.belief import from_moments\n"
+        "from gcslam_torch.frontend.rosbag import cdrless_rotvec\n"
         "import importlib; sys.modules['matplotlib'] = None  # the card's host has none\n"
         f"for t in {FORENSIC_TOOLS!r}: importlib.import_module('gcslam_torch.tools.' + t)\n"
         "from gcslam_torch.parallel.sweep import shard_states, shard_batches, gather_states, gather_atlas\n"
