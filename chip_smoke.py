@@ -2,12 +2,13 @@
 
     python3 chip_smoke.py                 # every phase; one card is enough
     python3 chip_smoke.py --phases 1,2,15 # the device, the kernels and the mesh alone
+    python3 chip_smoke.py --phases 1,2,18 # the device, the kernels and the compiled step alone
 
 Phases, in order; any failure exits non-zero before the result line:
   1. device: a CUDA card is required (no CPU fallback); prints its name and
      `nvidia-smi` name + power limit;
-  2. kernels: builds csrc/sinkhorn.cu and csrc/raster.cu with nvcc (one
-     process each, started together) and holds each kernel against its
+  2. kernels: builds csrc/sinkhorn.cu, csrc/raster.cu and csrc/eigh.cu with
+     nvcc (one process each, started together) and holds each kernel against its
      plain PyTorch version on the card at the main paths' shapes (the
      Sinkhorn at B = 1, 2, 4 and 8 problems of 1024 rows among them, the
      sweep's): Sinkhorn
@@ -19,11 +20,20 @@ Phases, in order; any failure exits non-zero before the result line:
      bit-equal, and the (pixel, splat) pairs it composites); times both by
      CUDA events over back-to-back calls and by the kernel's own device
      time in torch.profiler; prints ptxas registers, spills and shared
-     memory;
+     memory; eigh3 and eigh_sym on the inputs of one eager flagship scan
+     (scan 3), at each instance (batch shape) it launches, in f64 and in
+     f32, against their plain versions (eigenvalues and V diag(lambda) V^T
+     within 1e-14 of max|lambda| in f64, 1e-6 in f32; whether bit-equal),
+     two launches bit-equal, beside torch.linalg.eigh's time on the same
+     batch; after the last phase, the same check on every other eigh
+     instance a path's counted run launched (the camera frontend's, the
+     sweeps' folded batches, the f32 child's, the mesh ranks'), on that
+     path's first input of it;
   3. flagship path: runner.run_bag over 50 synthetic scans of 8192 points
      at PipelineConfig() defaults; finite poses, ATE gate of bench.py
      (<= 0.30 m, <= 4.0 deg, initial-pose alignment), and exactly
-     map_icp_iters x n_scans Sinkhorn launches;
+     map_icp_iters x n_scans Sinkhorn launches (on the card every runner
+     replays the compiled step: launches are counted at each replay);
   4. determinism: two 10-scan flagship runs give bit-equal poses;
   5. camera path: generate(with_camera=True) (the native C++ corner stage,
      as the JAX generator) and run_bag at
@@ -144,12 +154,25 @@ Phases, in order; any failure exits non-zero before the result line:
      attributed, the top 25 functions; tools/microbench_scatter at the
      production shapes, the strategies' checksums within 1e-3 of one
      another. Skipped with --phases 1,2,15.
+ 18. the compiled step (models/runner.CompiledStep) at PipelineConfig():
+     a fresh capture (its seconds); 3 eager flagship scans under
+     torch.cuda.set_sync_debug_mode("error") (no implicit host sync); the
+     50-scan flagship through run_bag's graph replays against the eager
+     step (poses and tape bit-equal), the ATE gate, exactly 100 Sinkhorn
+     launches counted over the replays, the 1 / 0 / 0 ledger; scan 5 on
+     the plain routes (the Sinkhorn loop, the Jacobi chains) against the
+     kernels within tests/test_torch_slice.py's tolerances; eager and
+     graph ms/scan over 10 scans in 3 interleaved pairs; a torch.profiler
+     record of 3 replays (the Sinkhorn and eigh launches the counters
+     credit over them equal to the kernels in its trace) and of 3 eager
+     steps. With --phases 1,2,18 it runs alone after phases 1-2.
 Before the last line it prints {"paths": ...} and {"kernels": [...]}, one
 kernel record per instance the main paths launch (dtype and shape), and
 fails if one was never launched; the last line is {"ok": true, "device":
 {...}}. Files go to results/chip_smoke/.
 """
 
+import collections
 import contextlib
 import json
 import math
@@ -311,6 +334,7 @@ MESH_TIMEOUT_S = 600
 # Phase 13: the f32-belief flagship (the JAX package's production mode,
 # BENCH_r05.json), in a child process with GCSLAM_BELIEF_DTYPE=float32
 F32_ENV = {"GCSLAM_BELIEF_DTYPE": "float32"}
+F32_EIGH_INPUTS = os.path.join(OUT_DIR, "f32_eigh_inputs.npz")
 BAG_ARTIFACTS = ["runtime_manifest.json", "trajectory.tum", "ground_truth.tum", "diagnostics.npz",
                  "splat_export.npz", "metrics.json", "metrics.csv", "dashboard.html", "map_events.jsonl",
                  "audit.json"]
@@ -320,6 +344,45 @@ BAG_ARTIFACTS = ["runtime_manifest.json", "trajectory.tum", "ground_truth.tum", 
 TOOLS_PHASE_LIMIT_S = 90.0
 # phase 17 (the measurement layer)
 PROFILE_STEPS = 5
+# eigh3 / eigh_sym against their plain versions, relative to the batch item's
+# max |lambda| (eigenvalues and the reconstruction V diag(lambda) V^T): the
+# kernels do the plain versions' IEEE operations (built without
+# contraction); eigh3's plain chain sends its 3 x 3 products to cuBLAS,
+# which sums otherwise, so the two part by a few ulp over 18 rotations
+EIGH_RTOL = {"float64": 1e-14, "float32": 1e-6}
+# eigh3's FLOPs a matrix, the work the function needs (not the kernel's
+# full 3 x 3 products): 18 rotations, each 26 for (c, s) with its guards
+# and 18 each (2 outputs x 3 entries x 3 FLOPs) for rows p, q of A, columns
+# p, q of A and columns p, q of V; then 35 for the symmetrization (6), the
+# max|A| (11), the scaling (6), the rescaling (3) and the ranks (9)
+EIGH3_FLOPS = 18 * (26 + 3 * 18) + 35
+EIGH_REPLACES = {"eigh3": "gcslam_tpu/ops/linalg.py:160", "eigh_sym": "gcslam_tpu/ops/linalg.py:45"}
+EIGH_RECORD_AFTER = 3  # phase 2 records the eigh inputs of flagship scan 3, after scans 0-2
+# phase 18, the compiled step
+N_SYNC_SCANS = 3  # eager flagship scans under set_sync_debug_mode("error")
+N_TIMING_PAIRS = 3  # interleaved (eager, graph) timings
+N_TIMED_SCANS = 10  # scans of each timing
+EAGER_LAUNCH_BOUND = 14_500  # eager launch calls a flagship scan (27,132 before the eigen kernels)
+ROUTE_POSE_ATOL = 1e-5  # tests/test_torch_slice.py POSE_ATOL (m / rad)
+# tests/test_torch_slice.py's tape tolerances: exact fields, (rtol of the
+# field's max |value|, atol) for the others, the mass-gated fields
+ROUTE_EXACT = {"timestamp", "dt_sec", "cert_exact", "cert_frobenius_applied", "cert_n_triggers", "cert_triggers",
+               "map_evicted_mass", "map_n_culled", "map_n_merged", "map_valid_total", "map_ins_ids",
+               "map_ins_tiles", "io_n_points_valid", "io_n_imu_valid", "io_imu_coverage", "io_n_cam_valid",
+               "io_loop_weight", "mismatch_directional_score", "excitation_dt_effect",
+               "excitation_extrinsic_effect", "overconfidence_dt_asymmetry"}
+ROUTE_DEFAULT_TOL = (1e-5, 1e-9)
+ROUTE_TOL = {
+    "cond_pose6": (1e-2, 0), "eigmin_pose6": (1e-2, 0), "mismatch_nll_per_ess": (1e-2, 0),
+    "overconfidence_z_to_xy_ratio": (1e-2, 0), "support_ess_total": (1e-2, 0),
+    "overconfidence_ess_to_excitation": (1e-2, 0), "ot_marginal_defect_a": (1e-3, 0),
+    "map_fused_mass": (1e-2, 1e-3), "ot_transport_mass": (1e-2, 1e-3), "map_insert_mass": (1e-3, 1e-6),
+    "map_ins_w": (1e-3, 1e-6), "map_ins_mu": (0, 1e-5), "io_point_weight_sum": (1e-6, 0),
+    "ee_info_gain_pred": (1e-4, 0), "ee_info_gain_real": (1e-4, 0), "hyp_spread": (1e-4, 1e-12),
+    "power_beta": (1e-6, 0), "total_trigger_magnitude": (1e-5, 0),
+    "influence_psd_projection_delta": (0, 1e-9), "influence_anchor_drift_rho": (0, 1e-12),
+}
+ROUTE_MASS_GATED = {"total_trigger_magnitude", "support_ess_total", "overconfidence_ess_to_excitation"}
 CENSUS_LAUNCH_RTOL = 0.01  # the census's launch calls of one scan against phase 8's a scan
 SCATTER_CHECKSUM_TOL = 1e-3  # the JAX tool prints its checksums to 3 decimals
 TOOLS_CARD_CPU_TOL = 1e-12  # dead_reckon / estimate_extrinsics: host float64 on bit-equal load_bag rows
@@ -370,7 +433,11 @@ def ptxas_summary(log: str):
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             t = re.search(r"sinkhorn_kernelI([fd])Li(\d+)E", m.group(1))
+            e = re.search(r"(eigh3_kernel|eigh_sym_kernel)I([fd])(?:Li(\d+)E)?E", m.group(1))
             name = (f"sinkhorn_kernel<{'float' if t.group(1) == 'f' else 'double'}, KMAX={t.group(2)}>" if t
+                    else (f"{e.group(1)}<{'float' if e.group(2) == 'f' else 'double'}"
+                          + ("" if e.group(3) is None else f", n={e.group(3) if e.group(3) != '0' else 'any'}")
+                          + ">") if e
                     else "raster_kernel" if "raster_kernel" in m.group(1) else m.group(1))
         elif "spill stores" in line:
             spill = line.strip().split(",")[1].strip()
@@ -383,21 +450,23 @@ def ptxas_summary(log: str):
 
 
 def device_ms(fn, kernel: str, n: int = 20):
-    """The kernel's own device time per launch (ms), from torch.profiler's
-    CUDA activity over n calls; None where the trace holds no such kernel."""
+    """The kernel's own device time per launch (ms), from the device
+    activity of a torch.profiler trace of n calls (its raw events, as
+    utils/cuda_profile reads them); None where the trace holds no such
+    kernel."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from gcslam_torch.utils import cuda_profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+
+    def calls():
         for _ in range(n):
             fn()
-        torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages() if kernel in e.key]
-    count = sum(e.count for e in rows)
-    total_us = sum(e.device_time_total for e in rows)
-    return total_us / count / 1e3 if count and total_us else None
+
+    prof, _ = cuda_profile.profile(calls)
+    events = [e for e in cuda_profile.device_activity(cuda_profile.raw_events(prof)) if kernel in e.name()]
+    return sum(e.duration_ns() for e in events) / len(events) / 1e6 if events else None
 
 
 def fmt_us(ms) -> str:
@@ -411,16 +480,16 @@ def bound(n_bytes: float, n_ops: float, peak_ops: float):
 
 
 def phase_build():
-    """Both kernels' nvcc builds and the bag decoder's g++ build at once."""
+    """The kernels' nvcc builds and the bag decoder's g++ build at once."""
     from gcslam_torch.frontend import native
-    from gcslam_torch.ops import sinkhorn
+    from gcslam_torch.ops import eigh, sinkhorn
     from gcslam_torch.outputs import raster
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=3) as pool:
-        paths = list(pool.map(lambda m: m.build(), (sinkhorn, raster, native)))
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        paths = list(pool.map(lambda m: m.build(), (sinkhorn, raster, eigh, native)))
     print(f"built {', '.join(p.name for p in paths)} in {time.perf_counter() - t0:.1f} s (in parallel)")
-    for mod in (sinkhorn, raster):
+    for mod in (sinkhorn, raster, eigh):
         for line in ptxas_summary(mod.build_log()):
             print("  ptxas:", line)
 
@@ -507,6 +576,230 @@ def phase_sinkhorn(device):
                                              cluster=cl, threads=threads, plain_ms=plain_ms, max_abs_err=err,
                                              bound_ms=bound_ms, bound_by=bound_by)
     return records
+
+
+def eigh_sym_flops(n: int) -> int:
+    """eigh_sym's FLOPs a matrix: per round of a sweep, n'/2 rotations of
+    ~20 and the row and column passes (6 FLOPs per entry of rows p, q of A,
+    of columns p, q of A and of V); and the symmetrization and scaling."""
+    from gcslam_torch.ops import eigh
+
+    players = n + (n & 1)
+    return eigh.EIGH_SYM_SWEEPS * (players - 1) * (players // 2) * (20 + 18 * n) + 3 * n * n
+
+
+def eigh_key(counter, M) -> tuple:
+    """(kernel, dtype, batch shape (B, n, n)) of an eigh launch on M."""
+    from gcslam_torch.ops import eigh
+
+    n = M.shape[-1]
+    return ("eigh3" if counter is eigh.EIGH3_COUNTER else "eigh_sym", str(M.dtype).replace("torch.", ""),
+            (int(M.numel() // (n * n)), n, n))
+
+
+class EighInputs:
+    """While installed, the first input of every eigh kernel instance
+    (eigh_key) launched outside a CUDA graph capture, cloned, and the
+    launches of each; an instance launched under a capture, where the
+    inputs hold no values yet, goes to `captured`."""
+
+    def __init__(self):
+        self.inputs, self.launches, self.captured = {}, collections.Counter(), set()
+        self._launch = None
+
+    def install(self) -> "EighInputs":
+        import torch
+        from gcslam_torch.ops import eigh
+
+        if self._launch is not None:
+            return self
+        self._launch = launch = eigh._launch
+
+        def recording(fn, counter, M, *args):
+            key = eigh_key(counter, M)
+            if torch.cuda.is_current_stream_capturing():
+                self.captured.add(key)
+            else:
+                self.inputs.setdefault(key, M.reshape(key[2]).clone())
+                self.launches[key] += 1
+            return launch(fn, counter, M, *args)
+
+        eigh._launch = recording
+        return self
+
+    def uninstall(self) -> None:
+        from gcslam_torch.ops import eigh
+
+        if self._launch is not None:
+            eigh._launch, self._launch = self._launch, None
+
+    def __enter__(self):
+        return self.install()
+
+    def __exit__(self, *exc):
+        self.uninstall()
+
+    def host(self) -> dict:
+        """The inputs as numpy arrays keyed "kernel|dtype|BxNxN" (to cross a
+        process boundary)."""
+        return {f"{k[0]}|{k[1]}|{'x'.join(map(str, k[2]))}": v.cpu().numpy() for k, v in self.inputs.items()}
+
+    def merge(self, host: dict, device) -> None:
+        """Add the inputs of another process (host()) that this one lacks."""
+        import torch
+
+        for name, arr in host.items():
+            kernel, dt, shape = name.split("|")
+            self.inputs.setdefault((kernel, dt, tuple(int(x) for x in shape.split("x"))),
+                                   torch.as_tensor(arr, device=device))
+
+
+# The eigh launches of the main paths by instance (eigh_key), each path's
+# run credited as the Sinkhorn's is (the counters set to 0 just before the
+# run and read just after), with the paths that made them; EIGH_SEEN holds
+# the first input of every instance the paths launched, which
+# phase_eigh_paths holds against the plain version.
+EIGH_LAUNCHES = collections.Counter()
+EIGH_PATHS = {}
+EIGH_SEEN = EighInputs()
+
+
+def eigh_counts() -> dict:
+    """The eigh counters' launches by instance (eigh_key)."""
+    from gcslam_torch.ops import eigh
+
+    return {(name,) + k: v for name, counter in (("eigh3", eigh.EIGH3_COUNTER), ("eigh_sym", eigh.EIGH_SYM_COUNTER))
+            for k, v in counter.by_instance.items()}
+
+
+def eigh_reset() -> None:
+    from gcslam_torch.ops import eigh
+
+    eigh.EIGH3_COUNTER.reset()
+    eigh.EIGH_SYM_COUNTER.reset()
+
+
+def eigh_credit(label: str, counts=None) -> None:
+    """Add a path's eigh launches (default: the counters') to EIGH_LAUNCHES."""
+    for key, n in (eigh_counts() if counts is None else counts).items():
+        EIGH_LAUNCHES[key] += n
+        if label not in EIGH_PATHS.setdefault(key, []):
+            EIGH_PATHS[key].append(label)
+
+
+@contextlib.contextmanager
+def eigh_counted(label: str):
+    """The eigh counters at 0 on entry, credited to `label` on exit."""
+    eigh_reset()
+    yield
+    eigh_credit(label)
+
+
+def eigh_inputs(device):
+    """The inputs of the eigh kernels' launches in one eager flagship scan
+    (scan EIGH_RECORD_AFTER), by instance (eigh_key): the first input of
+    each, and its launches in the scan."""
+    import torch
+    from gcslam_torch.frontend.synthetic import SyntheticConfig, generate
+    from gcslam_torch.models.config import PipelineConfig
+    from gcslam_torch.models.scan_step import init_state, scan_step
+
+    cfg = PipelineConfig()
+    run = generate(SyntheticConfig(n_scans=EIGH_RECORD_AFTER + 1, n_points=N_POINTS), device=device)
+    with torch.no_grad():
+        state = init_state(cfg, device=device)
+        for b in run.batches[:EIGH_RECORD_AFTER]:
+            state, _ = scan_step(state, b, cfg)
+        with EighInputs() as rec:
+            scan_step(state, run.batches[EIGH_RECORD_AFTER], cfg)
+    return rec.inputs, rec.launches
+
+
+def eigh_errors(lam, V, lam_p, V_p):
+    """max over the batch of |d lambda| and of |d (V diag(lambda) V^T)|,
+    relative to the item's max |lambda| of the plain version."""
+    import torch
+
+    scale = lam_p.abs().amax(-1, keepdim=True).clamp(min=torch.finfo(lam.dtype).tiny)
+    rec = (V * lam[..., None, :]) @ V.transpose(-1, -2)
+    rec_p = (V_p * lam_p[..., None, :]) @ V_p.transpose(-1, -2)
+    return (float(((lam - lam_p).abs() / scale).max()),
+            float(((rec - rec_p).abs().amax((-2, -1)) / scale[..., 0]).max()))
+
+
+def check_eigh(name: str, M):
+    """eigh3 or eigh_sym on the batch M against its plain version: finite,
+    two launches bit-equal, within EIGH_RTOL; times the kernel, its plain
+    version and torch.linalg.eigh on M; returns the instance's record."""
+    import torch
+    from gcslam_torch.ops import eigh
+
+    kernel = eigh.eigh3 if name == "eigh3" else eigh.eigh_sym
+    plain = eigh.eigh3_reference if name == "eigh3" else eigh.eigh_sym_reference
+    dt, shape = str(M.dtype).replace("torch.", ""), tuple(M.shape)
+    lam, V = kernel(M)
+    lam2, V2 = kernel(M)
+    lam_p, V_p = plain(M)
+    torch.cuda.synchronize()
+    if not (torch.isfinite(lam).all() and torch.isfinite(V).all()):
+        fail(f"{name} {dt} {shape}: non-finite output")
+    if not (torch.equal(lam, lam2) and torch.equal(V, V2)):
+        fail(f"{name} {dt} {shape}: two launches differ")
+    err_lam, err_rec = eigh_errors(lam, V, lam_p, V_p)
+    exact = torch.equal(lam, lam_p) and torch.equal(V, V_p)
+    if max(err_lam, err_rec) > EIGH_RTOL[dt]:
+        fail(f"{name} {dt} {shape}: kernel and plain version apart by {err_lam:.3e} (eigenvalues), "
+             f"{err_rec:.3e} (reconstruction) of max|lambda|, tolerance {EIGH_RTOL[dt]}")
+    ms = time_call(lambda: kernel(M))
+    dev_ms = device_ms(lambda: kernel(M), f"{name}_kernel")
+    plain_ms = time_call(lambda: plain(M), n=2 if name == "eigh_sym" else 5)
+    library_ms = time_call(lambda: torch.linalg.eigh(M), n=10)
+    B, n = shape[0], shape[-1]
+    flops = B * (EIGH3_FLOPS if name == "eigh3" else eigh_sym_flops(n))
+    bound_ms, bound_by = bound(M.element_size() * B * (2 * n * n + n), flops,
+                               PEAK_F64_PER_S if M.dtype == torch.float64 else PEAK_F32_PER_S)
+    print(f"{name} {dt} {shape}: max |d lambda| {err_lam:.3e}, |d V L V^T| {err_rec:.3e} of max|lambda| "
+          f"({'bit-equal' if exact else 'not bit-equal'} to the plain version); kernel {ms * 1e3:.1f} "
+          f"us/call (events), device {fmt_us(dev_ms)}, plain {plain_ms * 1e3:.1f} us/call, "
+          f"torch.linalg.eigh {library_ms * 1e3:.1f} us/call (it syncs), bound {bound_ms * 1e3:.4f} us "
+          f"({bound_by})")
+    return dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=library_ms,
+                max_abs_err=float((lam - lam_p).abs().max()), rel_err=max(err_lam, err_rec), bit_equal=exact,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def phase_eigh(device):
+    """eigh3 and eigh_sym against their plain versions on the inputs of one
+    flagship scan, at each of its instances, in f64 and f32; returns the
+    records keyed by (kernel, dtype, batch shape) and the launches a scan of
+    each recorded instance."""
+    import torch
+
+    inputs, per_scan = eigh_inputs(device)
+    print("eigh instances of flagship scan " + str(EIGH_RECORD_AFTER) + ": "
+          + ", ".join(f"{k[0]} {k[1]} {k[2]} x{v}" for k, v in sorted(per_scan.items())))
+    records = {}
+    for (name, _, shape), M0 in sorted(inputs.items()):
+        for dtype in (torch.float64, torch.float32):
+            key = (name, str(dtype).replace("torch.", ""), shape)
+            if key not in records:
+                records[key] = check_eigh(name, M0.to(dtype))
+    return records, per_scan
+
+
+def phase_eigh_paths(records: dict) -> None:
+    """Phase 2 on the paths' own inputs: every eigh instance the main paths
+    launched that phase_eigh did not hold is held against its plain version
+    on its first input (EIGH_SEEN); an instance with no input recorded
+    fails. Adds the records."""
+    new = sorted(set(EIGH_LAUNCHES) - set(records))
+    missing = [k for k in new if k not in EIGH_SEEN.inputs]
+    if missing:
+        fail(f"eigh instances the main paths launched with no input recorded outside a capture: {missing}")
+    for key in new:
+        records[key] = check_eigh(key[0], EIGH_SEEN.inputs[key])
+    print(f"eigh: {len(new)} more instances of the main paths held against the plain versions on their own inputs; "
+          f"{len(records)} instances in all")
 
 
 def raster_scene(P: int, H: int, W: int, device, seed: int):
@@ -615,26 +908,24 @@ def phase_raster(device):
 
 @contextlib.contextmanager
 def sinkhorn_shapes():
-    """Records the C shape of every Sinkhorn call the association makes."""
-    from gcslam_torch.ops import association
+    """The problem shape of every Sinkhorn launch in the block, from the
+    launch counter (sinkhorn.COUNTER, which the compiled step credits at
+    each replay), a single problem as (N, K): read at the block's end from
+    the counter's last reset inside it."""
+    from gcslam_torch.ops import sinkhorn
 
     shapes = set()
-    kernel_fn = association.sinkhorn_unbalanced
-
-    def recording(C, *args, **kwargs):
-        shapes.add(tuple(C.shape))
-        return kernel_fn(C, *args, **kwargs)
-
-    association.sinkhorn_unbalanced = recording
     try:
         yield shapes
     finally:
-        association.sinkhorn_unbalanced = kernel_fn
+        shapes.update(s[1:] if s[0] == 1 else s for s in sinkhorn.COUNTER.shapes)
 
 
 def replay(device, cfg, run, label):
-    """Warm-up, then one timed run_bag over all scans; returns
-    (final state, outputs, ms/scan, Sinkhorn launches, ATE)."""
+    """Warm-up, then one timed run_bag over all scans (replays of the
+    compiled step the warm-up captured); returns (final state, outputs,
+    ms/scan, Sinkhorn launches, ATE, the transfer ledger). The timed run's
+    eigh launches are credited to `label` and stay in the eigh counters."""
     import torch
     from gcslam_torch.eval.ate_rpe import compute_ate
     from gcslam_torch.models import runner
@@ -645,11 +936,12 @@ def replay(device, cfg, run, label):
     torch.cuda.synchronize()
     sinkhorn.COUNTER.reset()
     COUNTERS.reset()
-    t0 = time.perf_counter()
-    state, out = runner.run_bag(run.batches, cfg, device=device)
-    ledger = COUNTERS.cert()
-    torch.cuda.synchronize()
-    elapsed = time.perf_counter() - t0
+    with eigh_counted(label):
+        t0 = time.perf_counter()
+        state, out = runner.run_bag(run.batches, cfg, device=device)
+        ledger = COUNTERS.cert()
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
     launches = sinkhorn.COUNTER.launches
     if (ledger["h2d_calls"], ledger["d2h_bytes"], ledger["host_syncs"]) != (1, 0, 0):
         fail(f"{label}: run_bag's transfer ledger before the gather is {ledger}: expected one host-to-device "
@@ -679,8 +971,13 @@ def phase_flagship(device):
     t0 = time.perf_counter()
     run = generate(SyntheticConfig(n_scans=N_SCANS, n_points=N_POINTS), device=device)
     print(f"generated {N_SCANS} scans x {N_POINTS} points in {time.perf_counter() - t0:.1f} s")
+    from gcslam_torch.ops import eigh
+
     cfg = PipelineConfig()
     _, out, ms_scan, launches, ate, ledger = replay(device, cfg, run, "flagship path")
+    print(f"flagship path: eigh launches {eigh.EIGH3_COUNTER.launches} eigh3 + {eigh.EIGH_SYM_COUNTER.launches} "
+          f"eigh_sym over the replays (" + ", ".join(f"{k[0]} {k[1]} {k[2]} x{v}"
+                                                     for k, v in sorted(eigh_counts().items())) + ")")
     return run, cfg, out, ms_scan, launches, ate, ledger
 
 
@@ -733,9 +1030,10 @@ def phase_camera(device):
     from gcslam_torch.models.config import PipelineConfig
 
     cfg_syn = SyntheticConfig(n_scans=N_SCANS, n_points=N_POINTS, with_camera=True)
-    t0 = time.perf_counter()
-    run = generate(cfg_syn, device=device)
-    gen_s = time.perf_counter() - t0
+    with eigh_counted("camera frontend (generate)"):  # the plane fit of every frame's features
+        t0 = time.perf_counter()
+        run = generate(cfg_syn, device=device)
+        gen_s = time.perf_counter() - t0
     fe_ms = frontend_ms(device, cfg_syn)
     n_cam = [int(b.cam_valid.sum()) for b in run.batches]
     print(f"generated {N_SCANS} camera scans in {gen_s:.1f} s (raycasts and the C++ corner stage on the host, the "
@@ -825,24 +1123,33 @@ def phase_viewer(state, out, run):
 
 
 def profile_scans(device, cfg, batches, n: int = N_PROFILE_SCANS):
-    """profile_record over n run_bag scans after a 5-scan warm-up."""
+    """profile_record over n scans after a 5-scan warm-up, of the eager step
+    ("eager") and of run_bag's compiled-step replays ("graph")."""
     import torch
     from gcslam_torch.models import runner
     from gcslam_torch.utils.cuda_profile import profile_record
 
     state, _ = runner.run_bag(batches[:N_WARMUP], cfg, device=device)
     torch.cuda.synchronize()
-    return profile_record(lambda: runner.run_bag(batches[N_WARMUP:N_WARMUP + n], cfg, state=state, device=device), n)
+    span = batches[N_WARMUP:N_WARMUP + n]
+    return {"eager": profile_record(lambda: runner.eager_steps(state, span, cfg), n),
+            "graph": profile_record(lambda: runner.run_bag(span, cfg, state=state, device=device), n)}
 
 
 def fmt_profile(p) -> str:
     def f(x, spec):
         return "not measured" if x is None else format(x, spec)
 
-    return (f"{f(p['launch_calls_per_scan'], '.0f')} launch calls/scan, {f(p['device_kernels_per_scan'], '.0f')} "
-            f"device kernels/scan, device busy {f(p['device_busy_ms_per_scan'], '.2f')} ms of "
-            f"{p['profiled_span_ms_per_scan']:.1f} ms per profiled scan "
-            f"({f(None if p['device_busy_share'] is None else 100 * p['device_busy_share'], '.1f')} %)")
+    def one(q):
+        return (f"{f(q['launch_calls_per_scan'], '.1f')} launch calls/scan, {f(q['graph_launches_per_scan'], '.0f')} "
+                f"graph launches/scan, {f(q['device_kernels_per_scan'], '.0f')} device kernels/scan, device busy "
+                f"{f(q['device_busy_ms_per_scan'], '.2f')} ms of {q['profiled_span_ms_per_scan']:.1f} ms per "
+                f"profiled scan ({f(None if q['device_busy_share'] is None else 100 * q['device_busy_share'], '.1f')}"
+                " %)")
+
+    if "eager" not in p:  # one record (the sweep's)
+        return one(p)
+    return f"eager step: {one(p['eager'])}; compiled step: {one(p['graph'])}"
 
 
 def phase_per_hypothesis(device, run, ate_flag):
@@ -873,7 +1180,7 @@ def phase_per_hypothesis(device, run, ate_flag):
     # the shared-extraction level: one extraction, a GN chain per hypothesis
     cfg_se = PipelineConfig(map_share_extraction=True, map_gn_shared=False)
     n = N_SHARED_EXTRACTION_SCANS
-    with sinkhorn_shapes() as shapes_se:
+    with sinkhorn_shapes() as shapes_se, eigh_counted("shared-extraction path"):
         sinkhorn.COUNTER.reset()
         t0 = time.perf_counter()
         _, out_se = runner.run_bag(run.batches[:n], cfg_se, device=device)
@@ -910,7 +1217,7 @@ def phase_live(device, run, out_flag):
 
     cfg = PipelineConfig()
     expected = [cfg.n_surfel, cfg.k_assoc]
-    with sinkhorn_shapes() as shapes:
+    with sinkhorn_shapes() as shapes, eigh_counted("run_chunked"):
         sinkhorn.COUNTER.reset()
         t0 = time.perf_counter()
         state_c, out_c = runner.run_chunked(run.batches, cfg, chunk=CHUNK, device=device)
@@ -928,7 +1235,7 @@ def phase_live(device, run, out_flag):
     stream_dir = os.path.join(OUT_DIR, "stream")
     status_path = os.path.join(OUT_DIR, "status.jsonl")
     n = N_STREAM_SCANS
-    with sinkhorn_shapes() as shapes_s:
+    with sinkhorn_shapes() as shapes_s, eigh_counted("run_stream"):
         sinkhorn.COUNTER.reset()
         t0 = time.perf_counter()
         _, out_s = runner.run_stream(run.batches[:n], cfg, map_stream_dir=stream_dir, map_stream_every=5,
@@ -953,10 +1260,11 @@ def phase_live(device, run, out_flag):
 
     loiter = generate(SyntheticConfig(**LOITER), device=device)
     det = LoopDetector(LoopConfig(**LOOP_CFG))
-    t0 = time.perf_counter()
-    _, out_l = runner.run_chunked(loiter.batches, PipelineConfig(with_map=False), chunk=8, loop_detector=det,
-                                  device=device)
-    ms_l = 1e3 * (time.perf_counter() - t0) / len(loiter.batches)
+    with eigh_counted("loop closure (loitering world)"):
+        t0 = time.perf_counter()
+        _, out_l = runner.run_chunked(loiter.batches, PipelineConfig(with_map=False), chunk=8, loop_detector=det,
+                                      device=device)
+        ms_l = 1e3 * (time.perf_counter() - t0) / len(loiter.batches)
     poses_l = out_l.pose.cpu().numpy()
     fired = np.nonzero(out_l.tape.io_loop_weight.cpu().numpy() > 0)[0].tolist()
     xy = float(np.linalg.norm(poses_l[:, :2] - loiter.gt_poses[:, :2], axis=1).max())
@@ -1062,7 +1370,7 @@ def phase_bag(device, sk_bag):
     expected = (cfg.n_surfel, cfg.k_assoc)
     args = ["--bag", bag, "--config", BAG_CONFIG, "--gt", gt, "--points", str(BAG_POINTS), "--no-camera"]
     out_dir = os.path.join(bag_dir, "run")
-    with sinkhorn_shapes() as shapes:
+    with sinkhorn_shapes() as shapes, eigh_counted("bag eval.run"):
         sinkhorn.COUNTER.reset()
         t0 = time.perf_counter()
         metrics = eval_run.main(args + ["--out", out_dir])
@@ -1158,7 +1466,7 @@ def phase_canonical(device, sk_rec, rs_rec):
     expected = (cfg.n_surfel + cfg.n_feat, cfg.k_assoc)
     args = ["--bag", bag, "--config", BAG_CONFIG, "--gt", gt, "--chunk", "10", "--loop", "--live-view", live,
             "--out", out_dir]
-    with sinkhorn_shapes() as shapes:
+    with sinkhorn_shapes() as shapes, eigh_counted("canonical bag eval.run"):
         sinkhorn.COUNTER.reset()
         t0 = time.perf_counter()
         metrics = eval_run.main(args)
@@ -1281,7 +1589,7 @@ def phase_sweep(device, run, out_flag, ate_flag):
     sinkhorn.COUNTER.reset()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with warnings.catch_warnings(record=True) as caught:
+    with warnings.catch_warnings(record=True) as caught, eigh_counted(f"sweep R={SWEEP_RUNS}"):
         warnings.simplefilter("always")
         _, outs, aggs = sweep.run_sweep(runs, cfg, device=device)
         torch.cuda.synchronize()
@@ -1321,7 +1629,8 @@ def phase_sweep(device, run, out_flag, ate_flag):
     # reverse order; any dependence of a run on the others would show here,
     # batching's rounding (the same shapes) would not
     sinkhorn.COUNTER.reset()
-    _, outs_w, _ = sweep.run_sweep([r[:SWEEP_SCANS] for r in [runs[0]] + runs[:0:-1]], cfg, device=device)
+    with eigh_counted("sweep witness"):
+        _, outs_w, _ = sweep.run_sweep([r[:SWEEP_SCANS] for r in [runs[0]] + runs[:0:-1]], cfg, device=device)
     n_w, shapes = sinkhorn.COUNTER.launches, sinkhorn.COUNTER.shapes
     if n_w != cfg.map_icp_iters * SWEEP_SCANS or shapes != {(SWEEP_RUNS, N, K)}:
         fail(f"sweep witness: {n_w} sinkhorn launches on {shapes}, expected {cfg.map_icp_iters * SWEEP_SCANS} on "
@@ -1344,10 +1653,11 @@ def phase_sweep(device, run, out_flag, ate_flag):
         states, _, _ = sweep.run_sweep([r[:SWEEP_WARMUP] for r in sub], cfg, device=device)
         torch.cuda.synchronize()
         sinkhorn.COUNTER.reset()
-        t0 = time.perf_counter()
-        _, outs_r, _ = sweep.run_sweep([r[SWEEP_WARMUP:SWEEP_WARMUP + SWEEP_SCANS] for r in sub], cfg, states=states,
-                                       device=device)
-        torch.cuda.synchronize()
+        with eigh_counted(f"sweep R={R}"):
+            t0 = time.perf_counter()
+            _, outs_r, _ = sweep.run_sweep([r[SWEEP_WARMUP:SWEEP_WARMUP + SWEEP_SCANS] for r in sub], cfg,
+                                           states=states, device=device)
+            torch.cuda.synchronize()
         ms = 1e3 * (time.perf_counter() - t0) / SWEEP_SCANS
         n_r, shapes = sinkhorn.COUNTER.launches, sinkhorn.COUNTER.shapes
         if n_r != cfg.map_icp_iters * SWEEP_SCANS or shapes != {(R, N, K)}:
@@ -1356,8 +1666,9 @@ def phase_sweep(device, run, out_flag, ate_flag):
         count(("float64", R, N), n_r)
         if R == 2:  # the repeat run: the same sweep again from the same states
             sinkhorn.COUNTER.reset()
-            _, outs_rep, _ = sweep.run_sweep([r[SWEEP_WARMUP:SWEEP_WARMUP + SWEEP_SCANS] for r in sub], cfg,
-                                             states=states, device=device)
+            with eigh_counted(f"sweep R={R}"):
+                _, outs_rep, _ = sweep.run_sweep([r[SWEEP_WARMUP:SWEEP_WARMUP + SWEEP_SCANS] for r in sub], cfg,
+                                                 states=states, device=device)
             n_rep, shapes = sinkhorn.COUNTER.launches, sinkhorn.COUNTER.shapes
             if n_rep != cfg.map_icp_iters * SWEEP_SCANS or shapes != {(R, N, K)}:
                 fail(f"sweep repeat: {n_rep} sinkhorn launches on {shapes}, expected "
@@ -1376,9 +1687,10 @@ def phase_sweep(device, run, out_flag, ate_flag):
     B_h = 2 * C.K_HYP
     sinkhorn.COUNTER.reset()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    _, outs_h, _ = sweep.run_sweep([r[:SWEEP_SCANS] for r in runs[:2]], cfg_h, device=device)
-    torch.cuda.synchronize()
+    with eigh_counted("per-hypothesis sweep R=2"):
+        t0 = time.perf_counter()
+        _, outs_h, _ = sweep.run_sweep([r[:SWEEP_SCANS] for r in runs[:2]], cfg_h, device=device)
+        torch.cuda.synchronize()
     ms_h = 1e3 * (time.perf_counter() - t0) / SWEEP_SCANS
     n_h, shapes_h = sinkhorn.COUNTER.launches, sinkhorn.COUNTER.shapes
     if n_h != cfg_h.map_icp_iters * SWEEP_SCANS or shapes_h != {(B_h, N, K)}:
@@ -1407,18 +1719,24 @@ def phase_sweep(device, run, out_flag, ate_flag):
 
 
 def _mesh_counters_reset() -> None:
+    """A rank's counters to 0 before a family's run (the first call installs
+    the rank's EIGH_SEEN)."""
     from gcslam_torch.ops import collectives, sinkhorn
 
+    EIGH_SEEN.install()
     sinkhorn.COUNTER.reset()
+    eigh_reset()
     collectives.COUNTER.clear()
 
 
 def _mesh_family_record(n_scans: int, seconds: float, warm_seconds=None, warm_scans=None):
     """A rank's counters after a family's run: Sinkhorn launches and
-    shapes, collectives by axis, ms/scan."""
+    shapes, eigh launches by instance and the rank's eigh inputs so far,
+    collectives by axis, ms/scan."""
     from gcslam_torch.ops import collectives, sinkhorn
 
     rec = {"sinkhorn_launches": sinkhorn.COUNTER.launches, "sinkhorn_shapes": sorted(sinkhorn.COUNTER.shapes),
+           "eigh_launches": eigh_counts(), "eigh_inputs": EIGH_SEEN.host(),
            "collectives": dict(collectives.COUNTER), "n_scans": n_scans,
            "ms_per_scan_cold": 1e3 * seconds / n_scans}
     if warm_seconds is not None:
@@ -1546,6 +1864,14 @@ def mesh_cards_rank(device, n_cards: int) -> dict:
     return out
 
 
+def _eigh_from_ranks(label: str, recs) -> None:
+    """Credit the ranks' eigh launches of a family's run to `label`, and add
+    their eigh inputs to EIGH_SEEN."""
+    for rec in recs:
+        eigh_credit(label, rec["eigh_launches"])
+        EIGH_SEEN.merge(rec["eigh_inputs"], "cuda")
+
+
 def _sinkhorn_check(label: str, rec: dict, n_scans: int, shape) -> None:
     want = 2 * n_scans  # map_icp_iters at PipelineConfig()
     if rec["sinkhorn_launches"] != want or rec["sinkhorn_shapes"] != [tuple(shape)]:
@@ -1587,6 +1913,7 @@ def phase_mesh(device, sweep_poses):
     R = MESH_ONE_CARD_RUNS
     _sinkhorn_check("(run=1)", one, MESH_ONE_CARD_SCANS, (R, N, K))
     count(("float64", R, N), one["sinkhorn_launches"])
+    _eigh_from_ranks("mesh (run=1)", [one])
     want = {"run": MESH_ONE_CARD_SCANS + 1}  # the aggregates' pose gather a scan, the outputs' at the end
     if one["collectives"] != want:
         fail(f"mesh (run=1): collectives {one['collectives']}, expected {want}")
@@ -1617,6 +1944,7 @@ def phase_mesh(device, sweep_poses):
         fam = shared[0][name]
         _sinkhorn_check(f"{fam['mesh']} on a shared card", fam, MESH_SHARED_CARD_SCANS, (B, N, K))
         count(("float64", B, N), sum(s[name]["sinkhorn_launches"] for s in shared))
+        _eigh_from_ranks(f"mesh {fam['mesh']} on a shared card", [s[name] for s in shared])
         d = float(np.abs(fam["pose"] - fam["plain_pose"]).max())
         if not np.all(np.isfinite(fam["pose"])) or not d <= MESH_POSE_BOUND_M:
             fail(f"mesh {fam['mesh']} on a shared card: max |d pose| {d:.3e} from run_sweep (bound {MESH_POSE_BOUND_M})")
@@ -1673,6 +2001,7 @@ def phase_mesh(device, sweep_poses):
             if not np.array_equal(rank[name]["pose"], fam["pose"]):
                 fail(f"mesh {fam['mesh']}: rank {r} gathered other poses than rank 0")
         count(("float64", B, N), sum(rank[name]["sinkhorn_launches"] for rank in ranks))
+        _eigh_from_ranks(f"mesh {fam['mesh']}", [rank[name] for rank in ranks])
         poses = fam["pose"]
         if poses.shape != (SWEEP_RUNS, N_SCANS, 6) or not np.all(np.isfinite(poses)):
             fail(f"mesh {fam['mesh']}: poses of shape {poses.shape}, or non-finite")
@@ -1939,45 +2268,49 @@ def phase_tools():
 
 def f32_flagship_child() -> None:
     """Phase 13's child (GCSLAM_BELIEF_DTYPE=float32 binds at import): the
-    flagship replay after a warm-up; prints one JSON line."""
+    flagship replay after a warm-up; prints one JSON line. The Sinkhorn
+    calls are the (dtype, (N, K)) of its launches and the eigh launches by
+    instance, from the launch counters (credited at each graph replay); the
+    first input of each eigh instance goes to F32_EIGH_INPUTS."""
     import torch
     from gcslam_torch.eval.ate_rpe import compute_ate
     from gcslam_torch.frontend.synthetic import SyntheticConfig, generate
     from gcslam_torch.models import runner
     from gcslam_torch.models.config import PipelineConfig
-    from gcslam_torch.ops import association, sinkhorn
+    from gcslam_torch.ops import eigh, sinkhorn
     from gcslam_torch.tools.precision_compare import certificate_fields
     from gcslam_torch.utils.dtypes import BELIEF_DTYPE
 
-    calls = set()
-    kernel_fn = association.sinkhorn_unbalanced
-
-    def recording(C, *args, **kwargs):
-        calls.add((str(C.dtype).replace("torch.", ""), tuple(C.shape)))
-        return kernel_fn(C, *args, **kwargs)
-
-    association.sinkhorn_unbalanced = recording
+    EIGH_SEEN.install()
     run = generate(SyntheticConfig(n_scans=N_SCANS, n_points=N_POINTS))
     cfg = PipelineConfig()
     runner.run_bag(run.batches[:N_WARMUP], cfg)
     torch.cuda.synchronize()
-    calls.clear()
-    sinkhorn.COUNTER.reset()
+    for counter in (sinkhorn.COUNTER, eigh.EIGH3_COUNTER, eigh.EIGH_SYM_COUNTER):
+        counter.reset()
     t0 = time.perf_counter()
     _, out = runner.run_bag(run.batches, cfg)
     torch.cuda.synchronize()
     ms = 1e3 * (time.perf_counter() - t0) / N_SCANS
     poses = out.pose.double().cpu().numpy()
     ate = compute_ate(poses, run.gt_poses, align="initial")
+    calls = sorted({(dt, shape[1:] if shape[0] == 1 else shape) for dt, shape in sinkhorn.COUNTER.by_instance})
+    eigh_launches = [[name, dt, list(shape), n] for name, counter in (("eigh3", eigh.EIGH3_COUNTER),
+                                                                       ("eigh_sym", eigh.EIGH_SYM_COUNTER))
+                     for (dt, shape), n in sorted(counter.by_instance.items())]
+    os.makedirs(OUT_DIR, exist_ok=True)
+    np.savez(F32_EIGH_INPUTS, **EIGH_SEEN.host())
     print(json.dumps({"belief_dtype": str(BELIEF_DTYPE), "pose_dtype": str(out.pose.dtype), "ms_per_scan": ms,
-                      "sinkhorn_launches": sinkhorn.COUNTER.launches, "sinkhorn_calls": sorted(calls),
+                      "sinkhorn_launches": sinkhorn.COUNTER.launches, "sinkhorn_calls": calls,
+                      "eigh_launches": eigh_launches,
                       "finite": bool(np.isfinite(poses).all()), "ate_m": ate["translation"]["rmse"],
                       "ate_deg": ate["rotation_deg"]["rmse"], **certificate_fields(out.tape)}))
 
 
 def phase_f32(out_flag, ate_flag, ms_flag):
     """The f32-belief flagship in a child process; returns its record and
-    its Sinkhorn launches (all of the f32 instance)."""
+    its Sinkhorn launches (all of the f32 instance). Its eigh launches are
+    credited, and its eigh inputs join EIGH_SEEN."""
     from gcslam_torch.tools.precision_compare import certificate_fields
 
     root = os.path.dirname(os.path.abspath(__file__))
@@ -2004,6 +2337,9 @@ def phase_f32(out_flag, ate_flag, ms_flag):
              f"on {want}")
     if r["ate_m"] > GATE_ATE_TRANS_RMSE_M or r["ate_deg"] > GATE_ATE_ROT_RMSE_DEG:
         fail(f"f32 flagship ATE gate: {r['ate_m']:.4f} m / {r['ate_deg']:.4f} deg")
+    eigh_credit("f32-belief flagship", {(name, dt, tuple(shape)): n for name, dt, shape, n in r["eigh_launches"]})
+    with np.load(os.path.join(root, F32_EIGH_INPUTS)) as z:
+        EIGH_SEEN.merge(dict(z), "cuda")
     return {**r, "child_s": child_s, "f64_certificates": f64}, r["sinkhorn_launches"]
 
 
@@ -2049,10 +2385,9 @@ def phase_runtime(device, run, ledger_flag, launches_phase8):
 
     cfg = PipelineConfig()
     state, _ = runner.run_bag(run.batches[:N_WARMUP], cfg, device=device)
-    sites = implicit_syncs(lambda: runner.run_bag(run.batches[N_WARMUP:N_WARMUP + N_PROFILE_SCANS], cfg,
-                                                  state=state, device=device))
+    sites = implicit_syncs(lambda: runner.eager_steps(state, run.batches[N_WARMUP:N_WARMUP + N_PROFILE_SCANS], cfg))
     n_sync = sum(sites.values())
-    print(f"implicit host syncs over {N_PROFILE_SCANS} flagship scans (set_sync_debug_mode('warn')): {n_sync} "
+    print(f"implicit host syncs over {N_PROFILE_SCANS} eager flagship scans (set_sync_debug_mode('warn')): {n_sync} "
           f"({n_sync / N_PROFILE_SCANS:.1f} a scan) at " + ", ".join(f"{k} x{v}" for k, v in sites.most_common()))
     rec["implicit_syncs"] = {"n_scans": N_PROFILE_SCANS, "total": n_sync, "sites": dict(sites.most_common())}
 
@@ -2100,6 +2435,193 @@ def phase_runtime(device, run, ledger_flag, launches_phase8):
     return rec
 
 
+def compare_routes(ref, got) -> dict:
+    """One scan's pose and tape on the kernel routes against the plain
+    routes, at tests/test_torch_slice.py's tolerances; returns the max |d|
+    of each field that is not equal."""
+    import numpy as np
+
+    diffs = {}
+    d_pose = float((got.pose - ref.pose).abs().max())
+    if d_pose:
+        diffs["pose"] = d_pose
+    if d_pose > ROUTE_POSE_ATOL:
+        fail(f"compiled step: kernel and plain routes' poses apart by {d_pose:.3e} (bound {ROUTE_POSE_ATOL})")
+    degenerate = bool(ref.tape.ot_transport_mass < 1e-9)  # one scan: its mass-gated fields are not compared
+    for f in ref.tape._fields:
+        r = getattr(ref.tape, f).cpu().numpy().astype(np.float64)
+        g = getattr(got.tape, f).cpu().numpy().astype(np.float64)
+        if r.size and not np.array_equal(r, g):
+            diffs[f] = float(np.abs(g - r).max())
+        if f in ROUTE_EXACT:
+            ok = np.array_equal(r, g)
+        elif f in ROUTE_MASS_GATED and degenerate:
+            ok = True
+        else:
+            rtol, atol = ROUTE_TOL.get(f, ROUTE_DEFAULT_TOL)
+            ok = not r.size or np.abs(g - r).max() <= rtol * np.abs(r).max() + atol
+        if not ok:
+            fail(f"compiled step: tape field {f} apart between the kernel and plain routes by {diffs.get(f)}")
+    return diffs
+
+
+@contextlib.contextmanager
+def plain_routes():
+    """Every kernel of the step on its plain version: the Sinkhorn loop, the
+    3 x 3 Jacobi chain and the fixed-sweep Jacobi in plain torch."""
+    from gcslam_torch.ops import association, eigh, sinkhorn
+
+    saved = association.sinkhorn_unbalanced, eigh.eigh3, eigh.eigh_sym
+    association.sinkhorn_unbalanced = sinkhorn.sinkhorn_unbalanced_reference
+    eigh.eigh3, eigh.eigh_sym = eigh.eigh3_reference, eigh.eigh_sym_reference
+    try:
+        yield
+    finally:
+        association.sinkhorn_unbalanced, eigh.eigh3, eigh.eigh_sym = saved
+
+
+def phase_compiled(device, run=None, out_flag=None):
+    """Phase 18: the compiled step (models/runner.CompiledStep) at
+    PipelineConfig(); returns its record."""
+    import torch
+    from gcslam_torch.eval.ate_rpe import compute_ate
+    from gcslam_torch.frontend.synthetic import SyntheticConfig, generate
+    from gcslam_torch.models import runner
+    from gcslam_torch.models.config import PipelineConfig
+    from gcslam_torch.models.scan_step import scan_step
+    from gcslam_torch.ops import eigh, sinkhorn
+    from gcslam_torch.utils import cuda_profile
+    from gcslam_torch.utils.profiling import COUNTERS
+
+    t_phase = time.perf_counter()
+    if run is None:
+        run = generate(SyntheticConfig(n_scans=N_SCANS, n_points=N_POINTS), device=device)
+    cfg = PipelineConfig()
+    rec = {}
+
+    # the capture: a fresh compiled step, its first scan eager on a side stream
+    runner.release_graphs()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, _ = runner.run_bag(run.batches[:N_WARMUP], cfg, device=device)
+    torch.cuda.synchronize()
+    step = runner.compiled_steps()[-1]
+    rec["capture_s"], rec["first_run_s"] = step.capture_s, time.perf_counter() - t0
+    print(f"compiled step: capture and instantiation {step.capture_s:.3f} s; the first run_bag ({N_WARMUP} scans: "
+          f"scan 0 eager on a side stream, the capture, {step.replays} replays) {rec['first_run_s']:.3f} s")
+
+    # no implicit host sync in three eager flagship scans
+    with torch.no_grad():
+        s = state
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for b in run.batches[N_WARMUP:N_WARMUP + N_SYNC_SCANS]:
+                s, _ = scan_step(s, b, cfg)
+        except RuntimeError as e:
+            fail(f"an eager flagship scan synchronized with the host: {e}")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+    print(f"compiled step: {N_SYNC_SCANS} eager flagship scans under set_sync_debug_mode('error'): 0 implicit syncs")
+    rec["implicit_syncs_eager"] = 0
+
+    # the 50-scan flagship through the graph against the eager step
+    sinkhorn.COUNTER.reset()
+    COUNTERS.reset()
+    with eigh_counted("compiled-step flagship (phase 18)"):
+        state_g, out_g = runner.run_bag(run.batches, cfg, device=device)
+    ledger = COUNTERS.cert()
+    launches = sinkhorn.COUNTER.launches
+    eigh_launches = eigh_counts()
+    torch.cuda.synchronize()
+    state_e, out_e = runner.eager_steps(runner.init_state(cfg, device=device), run.batches, cfg)
+    equal = torch.equal(out_g.pose, out_e.pose)
+    d_pose = float((out_g.pose - out_e.pose).abs().max())
+    tape_equal = all(torch.equal(getattr(out_g.tape, f), getattr(out_e.tape, f)) for f in out_g.tape._fields)
+    ate = compute_ate(out_g.pose.cpu().numpy(), run.gt_poses, align="initial")
+    ate_m, ate_deg = ate["translation"]["rmse"], ate["rotation_deg"]["rmse"]
+    same_as_phase3 = None if out_flag is None else torch.equal(out_g.pose, out_flag.pose)
+    per_scan = {k: v / N_SCANS for k, v in eigh_launches.items()}
+    rec["eigh_launches_per_scan"] = {f"{k[0]} {k[1]} {k[2]}": v for k, v in sorted(per_scan.items())}
+    print(f"compiled step, {N_SCANS} flagship scans: poses {'bit-equal' if equal else 'not bit-equal'} to the eager "
+          f"step's (max |d| {d_pose:.3e}), tape {'bit-equal' if tape_equal else 'not bit-equal'}; ATE {ate_m:.4f} m "
+          f"/ {ate_deg:.4f} deg; {launches} sinkhorn launches counted over the replays; transfer ledger "
+          f"{ledger['h2d_calls']} / {ledger['d2h_bytes']} B / {ledger['host_syncs']}"
+          + ("" if same_as_phase3 is None else f"; bit-equal to phase 3's run_bag: {same_as_phase3}"))
+    if not torch.isfinite(out_g.pose).all():
+        fail("compiled step: non-finite poses")
+    if not equal:
+        fail(f"compiled step: poses differ from the eager step's by {d_pose:.3e}")
+    if launches != cfg.map_icp_iters * N_SCANS:
+        fail(f"compiled step: {launches} sinkhorn launches over {N_SCANS} replays, expected {cfg.map_icp_iters * N_SCANS}")
+    if (ledger["h2d_calls"], ledger["d2h_bytes"], ledger["host_syncs"]) != (1, 0, 0):
+        fail(f"compiled step: transfer ledger {ledger}")
+    if ate_m > GATE_ATE_TRANS_RMSE_M or ate_deg > GATE_ATE_ROT_RMSE_DEG:
+        fail(f"compiled step ATE gate: {ate_m:.4f} m / {ate_deg:.4f} deg")
+    rec.update(n_scans=N_SCANS, poses_bit_equal_to_eager=equal, max_abs_dpose=d_pose, tape_bit_equal=tape_equal,
+               ate_m=ate_m, ate_deg=ate_deg, sinkhorn_launches=launches, ledger=ledger,
+               bit_equal_to_phase3=same_as_phase3)
+
+    # one scan on the plain routes against the kernel routes
+    with torch.no_grad():
+        s5, _ = runner.eager_steps(runner.init_state(cfg, device=device), run.batches[:N_WARMUP], cfg)
+        _, out_k = scan_step(s5, run.batches[N_WARMUP], cfg)
+        with plain_routes():
+            _, out_p = scan_step(s5, run.batches[N_WARMUP], cfg)
+        torch.cuda.synchronize()
+    diffs = compare_routes(out_p, out_k)
+    print(f"compiled step: scan {N_WARMUP} on the plain routes and on the kernels within tests/test_torch_slice.py's "
+          f"tolerances; fields not bit-equal: " + (", ".join(f"{k} {v:.2e}" for k, v in sorted(diffs.items()))
+                                                     or "none"))
+    rec["plain_vs_kernel_routes"] = diffs
+
+    # eager and graph ms/scan, interleaved
+    span = run.batches[N_WARMUP:N_WARMUP + N_TIMED_SCANS]
+    pairs = []
+    for _ in range(N_TIMING_PAIRS):
+        times = []
+        for fn in (lambda: runner.eager_steps(state, span, cfg), lambda: runner.run_bag(span, cfg, state=state, device=device)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0) / len(span))
+        pairs.append(times)
+    print(f"compiled step: ms/scan over {N_TIMED_SCANS} scans in {N_TIMING_PAIRS} interleaved (eager, graph) pairs: "
+          + ", ".join(f"({e:.2f}, {g:.2f})" for e, g in pairs))
+    rec["ms_per_scan_pairs"] = pairs
+
+    # the graph's kernels a replay, from torch.profiler: the launches the
+    # counters credit over the replays against the kernels the device ran
+    counted = (("sinkhorn_kernel", sinkhorn.COUNTER), ("eigh3_kernel", eigh.EIGH3_COUNTER),
+               ("eigh_sym_kernel", eigh.EIGH_SYM_COUNTER))
+    for _, counter in counted:
+        counter.reset()
+    prof, span_ms = cuda_profile.profile(lambda: runner.run_bag(span[:N_PROFILE_SCANS], cfg, state=state,
+                                                                device=device))
+    ran = cuda_profile.kernel_counts(prof)
+    credited = {k: c.launches for k, c in counted}
+    on_device = {k: sum(n for name, n in ran.items() if k in name) for k, _ in counted}
+    rec["profile"] = {"graph": cuda_profile.record(cuda_profile.raw_events(prof), span_ms, N_PROFILE_SCANS),
+                      "eager": cuda_profile.profile_record(
+                          lambda: runner.eager_steps(state, span[:N_PROFILE_SCANS], cfg), N_PROFILE_SCANS)}
+    rec["replay_kernels_credited_vs_traced"] = {k: [credited[k], on_device[k]] for k in credited}
+    print(f"compiled step: profile over {N_PROFILE_SCANS} scans: {fmt_profile(rec['profile'])}; kernels the "
+          f"counters credit over the {N_PROFILE_SCANS} replays against the device's trace: "
+          + ", ".join(f"{k} {credited[k]} / {on_device[k]}" for k in credited))
+    if credited != on_device:
+        fail(f"compiled step: the launch counters credit {credited} over {N_PROFILE_SCANS} replays, the device ran "
+             f"{on_device}")
+    eager_launches = rec["profile"]["eager"]["launch_calls_per_scan"]
+    if eager_launches is None or eager_launches >= EAGER_LAUNCH_BOUND:
+        fail(f"compiled step: the eager step makes {eager_launches} launch calls a scan (bound {EAGER_LAUNCH_BOUND})")
+    if rec["profile"]["graph"]["graph_launches_per_scan"] != 1:
+        fail(f"compiled step: {rec['profile']['graph']['graph_launches_per_scan']} graph launches a scan, expected 1")
+    rec["seconds"] = time.perf_counter() - t_phase
+    return rec
+
+
 def main(argv=None) -> None:
     import argparse
 
@@ -2107,11 +2629,13 @@ def main(argv=None) -> None:
 
     p = argparse.ArgumentParser(prog="python3 chip_smoke.py")
     p.add_argument("--phases", default=None,
-                   help="1,2,15: the device, the kernels and the mesh phase alone (default: every phase)")
+                   help="1,2,15 or 1,2,18: the device, the kernels and the mesh or the compiled-step phase alone "
+                        "(default: every phase)")
     args = p.parse_args(argv)
     full = args.phases is None
-    if not full and sorted({int(x) for x in args.phases.split(",")}) != [1, 2, 15]:
-        fail("--phases takes 1,2,15 (phases 3-14, 16 and 17 run together, with no --phases)")
+    alone = None if full else sorted({int(x) for x in args.phases.split(",")})
+    if not full and alone not in ([1, 2, 15], [1, 2, 18]):
+        fail("--phases takes 1,2,15 or 1,2,18 (phases 3-14, 16 and 17 run together, with no --phases)")
 
     # 1. device
     if not torch.cuda.is_available():
@@ -2133,7 +2657,9 @@ def main(argv=None) -> None:
     phase_build()
     sk = phase_sinkhorn(device)
     rs = phase_raster(device)
+    eg, eigh_per_scan = phase_eigh(device)
     lap("phases 1-2")
+    EIGH_SEEN.install()  # the first input of every eigh instance the paths launch
 
     sinkhorn_launches, raster_launches, paths = {}, {}, {}
     sweep_poses = None
@@ -2202,14 +2728,16 @@ def main(argv=None) -> None:
             "sweep": sweep_rec,
         }
     else:
-        print("phases 3-14, 16 and 17 skipped (--phases 1,2,15): the kernels line holds phase 15's instances")
+        print(f"phases 3-14, 16 and 17 skipped (--phases {args.phases}): the kernels line holds phase "
+              f"{alone[-1]}'s instances")
 
-    # 15. the sweep over a device mesh
-    mesh_rec, launches_mesh = phase_mesh(device, sweep_poses)
-    lap("phase 15")
-    for key, n in launches_mesh.items():
-        sinkhorn_launches[key] = sinkhorn_launches.get(key, 0) + n
-    paths["mesh"] = mesh_rec
+    if full or alone[-1] == 15:
+        # 15. the sweep over a device mesh
+        mesh_rec, launches_mesh = phase_mesh(device, sweep_poses)
+        lap("phase 15")
+        for key, n in launches_mesh.items():
+            sinkhorn_launches[key] = sinkhorn_launches.get(key, 0) + n
+        paths["mesh"] = mesh_rec
 
     if full:
         # 16. the tools on the card's host, on phase 11's bag and run
@@ -2217,9 +2745,16 @@ def main(argv=None) -> None:
         lap("phase 16")
 
         # 17. the measurement layer: boot, ledger, syncs, step profile, census, scatter
-        paths["runtime"] = phase_runtime(device, run, ledger_flag,
-                                         paths["per_hypothesis"]["flagship_profile"]["launch_calls_per_scan"])
+        paths["runtime"] = phase_runtime(
+            device, run, ledger_flag, paths["per_hypothesis"]["flagship_profile"]["eager"]["launch_calls_per_scan"])
         lap("phase 17")
+
+    if full or alone[-1] == 18:
+        # 18. the compiled step: no syncs, graph against eager, routes, timing
+        paths["compiled_step"] = phase_compiled(device, *((run, out_flag) if full else ()))
+        sinkhorn_launches[("float64", 1, 1024)] = (sinkhorn_launches.get(("float64", 1, 1024), 0)
+                                                   + paths["compiled_step"]["sinkhorn_launches"])
+        lap("phase 18")
 
     kernels = []
     for key, rec in sk.items():
@@ -2237,6 +2772,21 @@ def main(argv=None) -> None:
             source="gcslam_torch/csrc/raster.cu", replaces="gcslam_tpu/outputs/rendering_pallas.py:128",
             launches=raster_launches.get(key, 0), max_abs_err=err, ms=rec["ms"], device_ms=rec["device_ms"],
             plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"], bound_by=rec["bound_by"], library_ms=None))
+    for name in ("eigh3", "eigh_sym"):
+        if not any(k[0] == name and n > 0 for k, n in EIGH_LAUNCHES.items()):
+            fail(f"the main paths launched no {name} kernel")
+    EIGH_SEEN.uninstall()
+    phase_eigh_paths(eg)
+    lap("phase 2 on the paths' eigh inputs")
+    for key, rec in sorted(eg.items()):
+        kernels.append(dict(
+            name=key[0], instance=f"{key[1]} {key[2]}", paths=", ".join(EIGH_PATHS.get(key, [])), route="cuda",
+            source="gcslam_torch/csrc/eigh.cu", replaces=EIGH_REPLACES[key[0]],
+            launches=EIGH_LAUNCHES.get(key, 0), launches_per_flagship_scan=eigh_per_scan.get(key),
+            max_abs_err=rec["max_abs_err"], rel_err=rec["rel_err"], bit_equal=rec["bit_equal"], ms=rec["ms"],
+            device_ms=rec["device_ms"], plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
+            bound_by=rec["bound_by"], library_ms=rec["library_ms"]))
+    kernels = [k for k in kernels if k["launches"] > 0 or not k["name"].startswith("eigh")]
     missing = [f"{k['name']} {k['instance']}" for k in kernels if k["launches"] < 1]
     if full and missing:
         fail(f"kernel instances the main paths never launched: {missing}")

@@ -8,20 +8,32 @@ per-scan outputs stacked along a leading time axis.
     the incremental map stream and the periodic status stream;
   - run_chunked(): windows of `chunk` scans with loop-closure detection at
     the window boundaries (the JAX package's one-program-per-chunk live
-    mode; here every scan is the same eager step, so its poses equal
-    run_bag's bit for bit when no loop fires).
+    mode; here a window is `chunk` replays of the compiled step, so its
+    poses equal run_bag's bit for bit when no loop fires).
 
 All of them run the same scan_step call sequence; they differ only in what
-the host does between steps. Every copy they make to the device and every
-value they read back goes through the transfer ledger
-(utils/profiling.COUNTERS), as the JAX package's runners do: run_bag and
-run_scan commit the whole bag in one call and read nothing back;
-run_stream commits scan by scan, run_chunked all full windows at once and
-the remainder scan by scan.
+the host does between steps. On the CPU each step is the eager scan_step.
+On CUDA each step is a replay of CompiledStep, scan_step captured as one
+CUDA graph per (config, device, belief dtype, state and batch shapes):
+the counterpart of the JAX runner's _step_jit / _chunk_jit (one compiled
+program, the state donated) and make_device_stager (the scans staged on
+the device). The host's work per scan is a device-to-device copy of the
+scan into the graph's static batch, one graph launch and a copy of the
+step's outputs into the run's stacked outputs; the first scan of a config
+runs eagerly on a side stream (it loads the libraries and makes the
+library handles and constant caches the capture needs) before the capture.
+A capture that fails raises: there is no eager retry on CUDA.
+
+Every copy the runners make to the device and every value they read back
+goes through the transfer ledger (utils/profiling.COUNTERS), as the JAX
+package's runners do: run_bag and run_scan commit the whole bag in one
+call and read nothing back; run_stream commits scan by scan, run_chunked
+all full windows at once and the remainder scan by scan.
 """
 
 from __future__ import annotations
 
+import collections
 import json
 import os
 import time
@@ -37,8 +49,14 @@ from gcslam_torch.models.scan_io import ScanBatch, stack_scan_batches
 from gcslam_torch.models.scan_step import ScanTape, StepOutput, StepState, init_state, scan_step, state_to
 from gcslam_torch.ops import linalg
 from gcslam_torch.ops.certs import TRIGGERS
+from gcslam_torch.ops.cuda_build import LaunchCounter
 from gcslam_torch.utils.device import resolve_device
+from gcslam_torch.utils.dtypes import BELIEF_DTYPE
 from gcslam_torch.utils.profiling import COUNTERS
+from gcslam_torch.utils.tree import tree_leaves, tree_rebuild
+
+MAX_GRAPHS = 2  # compiled steps kept; the least recently used one is freed first
+_GRAPHS: "collections.OrderedDict[tuple, CompiledStep]" = collections.OrderedDict()
 
 
 def stack_outputs(outs: List[StepOutput]) -> StepOutput:
@@ -47,6 +65,194 @@ def stack_outputs(outs: List[StepOutput]) -> StepOutput:
         stamp=torch.stack([o.stamp for o in outs]),
         tape=ScanTape(*[torch.stack([getattr(o.tape, f) for o in outs]) for f in ScanTape._fields]),
     )
+
+
+def _copy_into(dsts: List[torch.Tensor], srcs: List[torch.Tensor]) -> None:
+    """dst <- src for every pair (one foreach call, a few launches)."""
+    if dsts:
+        torch._foreach_copy_(dsts, srcs)
+
+
+def _write_state(dst: StepState, new: StepState) -> None:
+    """The state buffers `dst` <- the step's new state. A new leaf that is
+    the buffer itself is skipped; one that shares memory with some buffer
+    is copied out first, so that no buffer is written before it is read."""
+    dsts, srcs = tree_leaves(dst), tree_leaves(new)
+    bases = {d.untyped_storage().data_ptr() for d in dsts}
+    pairs = []
+    for d, x in zip(dsts, srcs):
+        if x.shape != d.shape or x.dtype != d.dtype:
+            raise RuntimeError(f"scan_step changed a state leaf from {tuple(d.shape)} {d.dtype} to "
+                               f"{tuple(x.shape)} {x.dtype}")
+        if x.data_ptr() == d.data_ptr() and x.stride() == d.stride():
+            continue
+        pairs.append((d, x.clone() if x.untyped_storage().data_ptr() in bases else x))
+    _copy_into([d for d, _ in pairs], [x for _, x in pairs])
+
+
+class CompiledStep:
+    """scan_step with static buffers, replayed as one captured CUDA graph.
+
+    `state` and `batch` hold the graph's static state and scan buffers.
+    The captured body is scan_step(state, batch) followed by the copy of
+    the new state into the state buffers (the JAX runner's donated
+    state), so replays chain; `out` holds the body's StepOutput, which the
+    next step overwrites. step(batch) stages the scan into the batch
+    buffers (device-to-device) and replays. Its first call runs the scan
+    eagerly on a side stream, which loads the libraries, builds the
+    kernels and makes the library handles and the step's constant caches,
+    then captures; its result is that scan's. A kernel wrapper's launch
+    counter (ops/cuda_build.LaunchCounter) moves at capture, where nothing
+    runs: the capture's counts are taken back out and added at every
+    replay. capture=False runs the same body without a graph (the CPU
+    test of the compiled path)."""
+
+    def __init__(self, config: PipelineConfig, state: StepState, batch: ScanBatch, capture: bool = True):
+        self.config = config
+        self.capture = capture
+        self.state = tree_rebuild(state, [x.clone() for x in tree_leaves(state)])
+        self.batch = tree_rebuild(batch, [x.clone() for x in tree_leaves(batch)])
+        self.graph = None
+        self.out = None
+        self.counts = []  # per LaunchCounter.instances: the snapshot of one replay's launches
+        self.capture_s = None  # host seconds of the capture, instantiation included
+        self.replays = 0
+
+    def load_state(self, state: StepState) -> None:
+        _copy_into(tree_leaves(self.state), tree_leaves(state))
+
+    def _body(self) -> StepOutput:
+        new_state, out = scan_step(self.state, self.batch, self.config)
+        bases = {x.untyped_storage().data_ptr() for x in tree_leaves(self.state)}
+        out = tree_rebuild(out, [x.clone() if x.untyped_storage().data_ptr() in bases else x
+                                 for x in tree_leaves(out)])
+        _write_state(self.state, new_state)
+        return out
+
+    def step(self, batch: ScanBatch) -> StepOutput:
+        """One scan from the state buffers into them; the output's tensors
+        are overwritten by the next step."""
+        if self.capture and self.graph is None:
+            return self._first_step(batch)
+        _copy_into(tree_leaves(self.batch), tree_leaves(batch))
+        if not self.capture:
+            return self._body()
+        self.graph.replay()
+        for c, snap in zip(LaunchCounter.instances, self.counts):
+            c.add(snap)
+        self.replays += 1
+        return self.out
+
+    def _first_step(self, batch: ScanBatch) -> StepOutput:
+        main = torch.cuda.current_stream()
+        side = torch.cuda.Stream()
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            new_state, out = scan_step(self.state, batch, self.config)
+            _write_state(self.state, new_state)
+        main.wait_stream(side)
+        counters = LaunchCounter.instances
+        saved = [c.snapshot() for c in counters]
+        for c in counters:
+            c.reset()
+        t0 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph):
+                self.out = self._body()
+        finally:
+            self.counts = [c.snapshot() for c in counters]
+            for c, snap in zip(counters, saved):
+                c.restore(snap)
+        self.capture_s = time.perf_counter() - t0
+        self.graph = graph
+        return out
+
+
+def _signature(tree) -> tuple:
+    return tuple((tuple(x.shape), x.dtype) for x in tree_leaves(tree))
+
+
+def compiled_step(config: PipelineConfig, state: StepState, batch: ScanBatch) -> CompiledStep:
+    """The cached CompiledStep of this (config, device, belief dtype, state
+    and batch shapes), its state buffers loaded with `state`. At most
+    MAX_GRAPHS are kept: the least recently used is freed, graph, memory
+    pool and buffers, when another is made."""
+    key = (config, state.hyp_weights.device, BELIEF_DTYPE, _signature(state), _signature(batch))
+    step = _GRAPHS.pop(key, None)
+    if step is None:
+        while len(_GRAPHS) >= MAX_GRAPHS:
+            _GRAPHS.popitem(last=False)
+        step = CompiledStep(config, state, batch)
+    else:
+        step.load_state(state)
+    _GRAPHS[key] = step
+    return step
+
+
+def release_graphs() -> None:
+    """Free every cached CompiledStep."""
+    _GRAPHS.clear()
+
+
+def compiled_steps() -> List[CompiledStep]:
+    """The cached CompiledSteps, least recently used first."""
+    return list(_GRAPHS.values())
+
+
+class StepLoop:
+    """scan_step over the n scans of one runner call, picked by the state's
+    device: the eager step on the CPU, replays of the cached CompiledStep
+    on CUDA. step(batch) returns the state after the scan (with the
+    compiled step the live state buffers, valid until the next step) and
+    the scan's output (with the compiled step a view of the run's stacked
+    outputs)."""
+
+    def __init__(self, config: PipelineConfig, state: StepState, n: int):
+        self.config = config
+        self.state = state
+        self.n = n
+        self.use_compiled = state.hyp_weights.is_cuda
+        self.compiled = None
+        self.outs = []
+        self.stacked = None
+
+    def step(self, batch: ScanBatch) -> Tuple[StepState, StepOutput]:
+        if not self.use_compiled:
+            self.state, out = scan_step(self.state, batch, self.config)
+            self.outs.append(out)
+            return self.state, out
+        if self.compiled is None:
+            self.compiled = compiled_step(self.config, self.state, batch)
+        out = self.compiled.step(batch)
+        leaves = tree_leaves(out)
+        if self.stacked is None:
+            self.stacked = [x.new_empty((self.n,) + x.shape) for x in leaves]
+        rows = [x[len(self.outs)] for x in self.stacked]
+        _copy_into(rows, leaves)
+        self.outs.append(tree_rebuild(out, rows))
+        return self.compiled.state, self.outs[-1]
+
+    def result(self) -> Tuple[StepState, StepOutput]:
+        """The final state (with the compiled step a copy of the buffers) and
+        the stacked outputs."""
+        if not self.use_compiled:
+            return self.state, stack_outputs(self.outs)
+        state = self.compiled.state
+        return (tree_rebuild(state, [x.clone() for x in tree_leaves(state)]),
+                tree_rebuild(self.outs[0], self.stacked))
+
+
+def eager_steps(state: StepState, batches: List[ScanBatch], config: PipelineConfig) -> Tuple[StepState, StepOutput]:
+    """The eager scan_step over `batches` from `state` on any device, with
+    the outputs stacked: the step the compiled step captures, for
+    comparisons and profiles against the runners' replays."""
+    outs = []
+    with torch.no_grad():
+        for b in batches:
+            state, out = scan_step(state, b, config)
+            outs.append(out)
+    return state, stack_outputs(outs)
 
 
 def _start(config: PipelineConfig, state: Optional[StepState], device) -> Tuple[StepState, torch.device]:
@@ -94,12 +300,12 @@ def _log_live(viewer, i: int, batch: ScanBatch, out: StepOutput, state: StepStat
 
 def _replay(state: StepState, stacked: ScanBatch, config: PipelineConfig) -> Tuple[StepState, StepOutput]:
     """scan_step over each scan of a device-resident stacked bag."""
-    outs = []
+    n = _n_scans(stacked)
+    loop = StepLoop(config, state, n)
     with torch.no_grad():
-        for i in range(_n_scans(stacked)):
-            state, out = scan_step(state, _scan_at(stacked, i), config)
-            outs.append(out)
-    return state, stack_outputs(outs)
+        for i in range(n):
+            loop.step(_scan_at(stacked, i))
+    return loop.result()
 
 
 def run_bag(
@@ -225,7 +431,7 @@ def run_stream(
     status_f = open(status_path, "w") if status_path is not None else None
     dead_end = DeadEndMonitor() if status_f is not None else None
     t_start = time.time()
-    outs = []
+    loop = StepLoop(config, state, n)
     pose_prev = np.zeros(6)
     try:
         with torch.no_grad():
@@ -235,8 +441,7 @@ def run_stream(
                     hit = loop_detector.detect(i, pose_prev, _host(batch.points), _host(batch.point_weights))
                     if hit is not None:
                         batch = _with_loop(batch, *hit)
-                state, out = scan_step(state, COUNTERS.to_device(batch, device), config)
-                outs.append(out)
+                state, out = loop.step(COUNTERS.to_device(batch, device))
                 if loop_detector is not None:
                     pose_prev = COUNTERS.to_host(out.pose)
                     pose_cov = None
@@ -281,7 +486,7 @@ def run_stream(
         for f in (stream_idx_f, status_f, live_viewer):
             if f is not None:
                 f.close()
-    return state, stack_outputs(outs)
+    return loop.result()
 
 
 def run_chunked(
@@ -314,7 +519,8 @@ def run_chunked(
         head = (ScanBatch(*[x[:n_full] for x in batches]) if isinstance(batches, ScanBatch)
                 else stack_scan_batches(batches[:n_full]))
         windows = COUNTERS.to_device(head, device)
-    outs = []
+    loop = StepLoop(config, state, n)
+    outs = loop.outs
     pending = None
     try:
         with torch.no_grad():
@@ -323,8 +529,7 @@ def run_chunked(
                     batch = _scan_at(windows, i)
                     if i == c and pending is not None and pending[2] > 0:
                         batch = _with_loop(batch, *pending)
-                    state, out = scan_step(state, batch, config)
-                    outs.append(out)
+                    state, out = loop.step(batch)
                     if live_viewer is not None:
                         _log_live(live_viewer, i, _scan_at(batches, i), out, state, config)
                 pending = None
@@ -342,11 +547,10 @@ def run_chunked(
                                                        _host(nb.point_weights))
             for i in range(n_full, n):
                 batch = _scan_at(batches, i)
-                state, out = scan_step(state, COUNTERS.to_device(batch, device), config)
-                outs.append(out)
+                state, out = loop.step(COUNTERS.to_device(batch, device))
                 if live_viewer is not None:
                     _log_live(live_viewer, i, batch, out, state, config)
     finally:
         if live_viewer is not None:
             live_viewer.close()
-    return state, stack_outputs(outs)
+    return loop.result()

@@ -37,6 +37,7 @@ a "map" axis the atlas functions read and write a tile-sharded atlas
 
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import NamedTuple, Tuple
 
 import numpy as np
@@ -48,7 +49,7 @@ from gcslam_torch.models.belief import Belief, identity_prior, mean_increment, t
 from gcslam_torch.models.config import PipelineConfig
 from gcslam_torch.models.scan_io import ScanBatch
 from gcslam_torch.ops import certs as CT
-from gcslam_torch.ops import collectives, evidence_imu, evidence_odom, fusion, iw, linalg, recompose, se3, tiling
+from gcslam_torch.ops import collectives, eigh, evidence_imu, evidence_odom, fusion, iw, linalg, recompose, se3, tiling
 from gcslam_torch.ops.deskew import deskew_constant_twist, deskew_points, deskew_weights
 from gcslam_torch.ops.hypothesis import hypothesis_barycenter
 from gcslam_torch.ops.predict import predict_diffusion, predict_imu
@@ -165,8 +166,16 @@ def _warp_sigma(Sigma: torch.Tensor, dt_sec: torch.Tensor) -> torch.Tensor:
     return torch.minimum(torch.clamp(dt_std, min=0.01), warp_cap)
 
 
+@lru_cache(maxsize=None)
+def _constant(name: str, device: torch.device) -> torch.Tensor:
+    """A constant vector of constants.py on `device`, made once per device
+    (the belief dtype binds at import): a copy from the host each step
+    would synchronize with the card. Read only."""
+    return torch.tensor(getattr(C, name), dtype=BELIEF_DTYPE, device=device)
+
+
 def _gravity(cfg, like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(C.GRAVITY_W, dtype=BELIEF_DTYPE, device=like.device) * cfg.imu_gravity_scale
+    return _constant("GRAVITY_W", like.device) * cfg.imu_gravity_scale
 
 
 def _hypothesis_step(
@@ -440,7 +449,7 @@ def _hypothesis_step(
 
     # --- Step 11: fusion alpha (pose-block conditioning)
     L_pose6 = _nan0(linalg.sym(L_evidence[..., C.IDX_POSE, C.IDX_POSE]))
-    eig_pose = torch.linalg.eigvalsh(L_pose6)
+    eig_pose = eigh.eigvalsh(L_pose6)
     eig_pose = torch.clamp(torch.nan_to_num(eig_pose, nan=cfg.eps_psd), min=cfg.eps_psd)
     eigmin_pose6 = eig_pose[..., 0]
     cond_pose6 = eig_pose[..., -1] / eig_pose[..., 0]
@@ -604,8 +613,8 @@ def scan_step(state: StepState, batch: ScanBatch, config: PipelineConfig,
             map_branch = atlas_mod.make_map_evidence_fn(view, cfg, batch.scan_seq, sensor_var, shared)
 
     if cfg.hyp_diversify and cfg.k_hyp == len(C.HYP_BETA_SCALE):
-        beta_scales = torch.tensor(C.HYP_BETA_SCALE, dtype=BELIEF_DTYPE, device=dev)
-        map_scales = torch.tensor(C.HYP_MAP_EVIDENCE_SCALE, dtype=BELIEF_DTYPE, device=dev)
+        beta_scales = _constant("HYP_BETA_SCALE", dev)
+        map_scales = _constant("HYP_MAP_EVIDENCE_SCALE", dev)
     else:
         beta_scales = torch.ones(cfg.k_hyp, dtype=BELIEF_DTYPE, device=dev)
         map_scales = torch.ones(cfg.k_hyp, dtype=BELIEF_DTYPE, device=dev)

@@ -9,6 +9,7 @@ needs nvcc and the card, and the CPU paths need neither.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -28,16 +29,45 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 class LaunchCounter:
     """Count of kernel launches (incremented only where the kernel runs),
-    and the problem shapes launched since the last reset where the wrapper
-    records them."""
+    and, where the wrapper records them (count()), the launches since the
+    last reset by instance, (dtype name, problem shape); `shapes` is the
+    set of problem shapes among them.
+
+    Every counter is listed in LaunchCounter.instances. A launch recorded
+    into a CUDA graph runs at each replay, not at capture: the runner
+    (models/runner.CompiledStep) takes the counts a capture made back out
+    (snapshot / restore) and adds them at every replay (add)."""
+
+    instances: List["LaunchCounter"] = []
 
     def __init__(self):
-        self.launches = 0
-        self.shapes = set()
+        self.reset()
+        LaunchCounter.instances.append(self)
 
     def reset(self) -> None:
         self.launches = 0
-        self.shapes = set()
+        self.by_instance = collections.Counter()
+
+    @property
+    def shapes(self) -> set:
+        return {shape for _, shape in self.by_instance}
+
+    def count(self, shape: tuple, dtype) -> None:
+        """One launch of a problem of `shape` in `dtype` (a torch dtype)."""
+        self.launches += 1
+        self.by_instance[(str(dtype).replace("torch.", ""), shape)] += 1
+
+    def snapshot(self) -> tuple:
+        return self.launches, collections.Counter(self.by_instance)
+
+    def restore(self, snap: tuple) -> None:
+        self.reset()
+        self.add(snap)
+
+    def add(self, snap: tuple) -> None:
+        """Add the counts of a snapshot (a capture's, at each replay)."""
+        self.launches += snap[0]
+        self.by_instance.update(snap[1])
 
 
 def nvcc() -> str:

@@ -8,6 +8,7 @@ leading hypothesis dim; the IW states themselves are shared.
 
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import NamedTuple, Tuple
 
 import numpy as np
@@ -54,6 +55,17 @@ def _t(x, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x, dtype=np.float64), dtype=BELIEF_DTYPE, device=device)
 
 
+_CONSTANTS = {"dims": PROCESS_BLOCK_DIMS, "masks": PROCESS_BLOCK_MASKS, "rho": PROCESS_RHO, "meas_rho": MEAS_RHO,
+              "block_index": _BLOCK_INDEX}
+
+
+@lru_cache(maxsize=None)
+def _const(name: str, device: torch.device, dtype: torch.dtype = BELIEF_DTYPE) -> torch.Tensor:
+    """A module constant on `device`, made once per (device, dtype): a copy
+    from the host each step would synchronize with the card. Read only."""
+    return torch.as_tensor(np.asarray(_CONSTANTS[name]), dtype=dtype, device=device)
+
+
 def datasheet_process_noise(device=None) -> ProcessNoiseIW:
     dims = PROCESS_BLOCK_DIMS.astype(np.float64)
     diffusion = np.array([
@@ -80,9 +92,9 @@ def datasheet_measurement_noise(lidar_sigma: float = C.LIDAR_SIGMA_MEAS, device=
 def process_noise_to_Q(state: ProcessNoiseIW, eps_psd: float = C.EPS_PSD) -> torch.Tensor:
     """22x22 Q from blockwise IW means E[Sigma] = Psi/(nu - p - 1)."""
     dev = state.Psi.device
-    dims = _t(PROCESS_BLOCK_DIMS, dev)
+    dims = _const("dims", dev)
     denom = linalg.softplus_positive(state.nu - dims - 1.0)
-    Q_blocks = state.Psi / denom[:, None, None] * _t(PROCESS_BLOCK_MASKS, dev)
+    Q_blocks = state.Psi / denom[:, None, None] * _const("masks", dev)
     Q = state.Psi.new_zeros(C.D_Z, C.D_Z)
     for i in range(7):
         s = int(PROCESS_BLOCK_STARTS[i])
@@ -95,7 +107,7 @@ def process_noise_to_Q(state: ProcessNoiseIW, eps_psd: float = C.EPS_PSD) -> tor
 def _pack_blocks_vec(r: torch.Tensor) -> torch.Tensor:
     """(..., 22) -> (..., 7, 6) zero-padded per-block vectors."""
     r_pad = torch.cat([r, r.new_zeros(r.shape[:-1] + (1,))], dim=-1)
-    idx = torch.as_tensor(_BLOCK_INDEX, device=r.device)
+    idx = _const("block_index", r.device, torch.int64)
     return r_pad[..., idx]
 
 
@@ -104,7 +116,7 @@ def _pack_blocks_mat(S: torch.Tensor) -> torch.Tensor:
     z_row = S.new_zeros(S.shape[:-2] + (1, S.shape[-1]))
     S_pad = torch.cat([S, z_row], dim=-2)
     S_pad = torch.cat([S_pad, S_pad.new_zeros(S_pad.shape[:-1] + (1,))], dim=-1)
-    idx = torch.as_tensor(_BLOCK_INDEX, device=S.device)
+    idx = _const("block_index", S.device, torch.int64)
     return S_pad[..., idx[:, :, None], idx[:, None, :]]
 
 
@@ -123,7 +135,7 @@ def process_iw_suffstats(
     Sigma_post, _ = linalg.spd_inverse_lifted(L_post, eps_lift)
     r_blocks = _pack_blocks_vec(mu_post - mu_pred)
     rrT = r_blocks[..., :, None] * r_blocks[..., None, :]
-    masks = _t(PROCESS_BLOCK_MASKS, L_pred.device)
+    masks = _const("masks", L_pred.device)
     dPsi = (rrT + _pack_blocks_mat(Sigma_post)) * masks
     tr_ev = linalg.trace(_pack_blocks_mat(L_evidence))
     tr_pr = linalg.trace(_pack_blocks_mat(L_pred))
@@ -141,12 +153,12 @@ def process_iw_apply(
     """Forgetful update Psi <- rho Psi + dPsi, nu <- rho nu + dnu with
     per-block PSD projection and smooth nu clipping."""
     dev = state.Psi.device
-    rho = _t(PROCESS_RHO, dev)
-    masks = _t(PROCESS_BLOCK_MASKS, dev)
+    rho = _const("rho", dev)
+    masks = _const("masks", dev)
     Psi_raw = (rho[:, None, None] * state.Psi + dPsi) * masks
     Psi_psd, _ = linalg.domain_projection_psd(Psi_raw, eps_psd)
     nu_raw = rho * state.nu + dnu
-    nu_min = _t(PROCESS_BLOCK_DIMS, dev) + 1.0 + C.IW_NU_WEAK_ADD
+    nu_min = _const("dims", dev) + 1.0 + C.IW_NU_WEAK_ADD
     nu = linalg.smooth_interval_project(nu_raw, nu_min, nu_max)
     return ProcessNoiseIW(nu=nu, Psi=Psi_psd * masks)
 
@@ -164,7 +176,7 @@ def measurement_iw_apply(
     eps_psd: float = C.EPS_PSD,
     nu_max: float = C.IW_NU_MAX,
 ) -> MeasurementNoiseIW:
-    rho = _t(MEAS_RHO, state.Psi.device)
+    rho = _const("meas_rho", state.Psi.device)
     Psi_psd, _ = linalg.domain_projection_psd(linalg.sym(rho[:, None, None] * state.Psi + dPsi), eps_psd)
     nu_raw = rho * state.nu + dnu
     nu_min = torch.full_like(state.nu, 3.0 + 1.0 + C.IW_NU_WEAK_ADD)

@@ -16,6 +16,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from gcslam_torch import constants as C
+from gcslam_torch.ops import eigh
 from gcslam_torch.ops.se3 import mv
 
 
@@ -47,13 +48,12 @@ def _fro(M: torch.Tensor) -> torch.Tensor:
 def domain_projection_psd(
     M: torch.Tensor, eps_psd: float = C.EPS_PSD
 ) -> Tuple[torch.Tensor, PsdCert]:
-    """Symmetrize + eigh + eigenvalue floor + reconstruct. Always applied."""
+    """Symmetrize + eigh + eigenvalue floor + reconstruct. Always applied.
+    The eigendecomposition is ops/eigh.eigh: the 3 x 3 Jacobi kernel, and
+    for other sizes the fixed-sweep kernel on CUDA, LAPACK on the CPU."""
     M_sym = sym(M)
     sym_delta = _fro(M_sym - M)
-    if M.shape[-1] == 3:
-        eigvals, eigvecs = eigh_3x3(M_sym)
-    else:
-        eigvals, eigvecs = torch.linalg.eigh(M_sym)
+    eigvals, eigvecs = eigh.eigh(M_sym)
     vals = torch.clamp(eigvals, min=eps_psd)
     M_psd = (eigvecs * vals[..., None, :]) @ eigvecs.transpose(-1, -2)
     projection_delta = _fro(M_psd - M_sym)
@@ -127,46 +127,12 @@ def safe_normalize(v: torch.Tensor, eps: float = C.EPS_MASS) -> Tuple[torch.Tens
     return v / denom, (eps / denom)[..., 0]
 
 
-def _jacobi_rot_3x3(A: torch.Tensor, V: torch.Tensor, p: int, q: int):
-    """One batched Jacobi rotation zeroing A[..., p, q] (algebraic form)."""
-    app = A[..., p, p]
-    aqq = A[..., q, q]
-    apq = A[..., p, q]
-    d = aqq - app
-    r = torch.sqrt(d * d + 4.0 * apq * apq)
-    small = apq.abs() <= 1e-24 * (app.abs() + aqq.abs() + 1e-30)
-    sgn_d = torch.where(d >= 0.0, 1.0, -1.0)
-    t = torch.where(small, 0.0, sgn_d * 2.0 * apq / (d.abs() + r + 1e-300))
-    c = 1.0 / torch.sqrt(1.0 + t * t)
-    s = t * c
-    one, zero = torch.ones_like(c), torch.zeros_like(c)
-    entry = {(p, p): c, (q, q): c, (p, q): s, (q, p): -s}
-    J = torch.stack([entry.get((i, j), one if i == j else zero) for i in range(3) for j in range(3)],
-                    dim=-1).unflatten(-1, (3, 3))
-    return sym(J.transpose(-1, -2) @ A @ J), V @ J
-
-
-def eigh_3x3(M: torch.Tensor, n_sweeps: int = 6) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Batched symmetric 3x3 eigendecomposition by cyclic Jacobi (ascending
-    eigenvalues; ties ordered by index like a stable argsort)."""
-    A = sym(M)
-    scale = A.abs().amax(dim=(-2, -1), keepdim=True)
-    scale_safe = torch.where(scale > 0.0, scale, 1.0)
-    A = A / scale_safe
-    V = eye(3, M).expand(M.shape)
-    for _ in range(n_sweeps):
-        for (p, q) in ((0, 1), (0, 2), (1, 2)):
-            A, V = _jacobi_rot_3x3(A, V, p, q)
-    lam = torch.diagonal(A, dim1=-2, dim2=-1) * scale_safe[..., 0]
-    i3 = torch.arange(3, device=M.device)
-    less = (lam[..., None, :] < lam[..., :, None]) | (
-        (lam[..., None, :] == lam[..., :, None]) & (i3[None, :] < i3[:, None])
-    )
-    rank = less.sum(-1)
-    order = torch.argmax((rank[..., None, :] == i3[:, None]).to(torch.int8), dim=-1)
-    lam_sorted = torch.gather(lam, -1, order)
-    V_sorted = torch.gather(V, -1, order[..., None, :].expand(V.shape))
-    return lam_sorted, V_sorted
+def eigh_3x3(M: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batched symmetric 3x3 eigendecomposition by 6 sweeps of cyclic Jacobi
+    (ascending eigenvalues; ties ordered by index like a stable argsort):
+    ops/eigh.eigh3, the kernel on CUDA tensors and the plain chain on CPU
+    tensors."""
+    return eigh.eigh3(M)
 
 
 def softplus_positive(x: torch.Tensor, eps: float = 1e-12, beta: float = 50.0) -> torch.Tensor:

@@ -16,6 +16,11 @@ vmap rule: under torch.func.vmap (the replay sweep's run axis,
 parallel/sweep.py) every vmapped leading dim folds into the kernel's B
 axis, so R runs of (N, K) problems, or of (K_HYP, N, K), are one launch of
 B = R or R * K_HYP problems.
+
+`COUNTER` counts launches where the wrapper launches the kernel. Inside a
+CUDA graph capture the wrapper only records the launch; the compiled step
+(models/runner.CompiledStep) moves the capture's counts to its replays, so
+the count stays the number of kernels that ran.
 """
 
 from __future__ import annotations
@@ -141,8 +146,7 @@ def _sinkhorn_launch(C, a, b, epsilon, tau_a, tau_b, n_iters):
                  B, N, K, eps, ua, vb, int(n_iters), stream)
     if err != 0:
         raise RuntimeError(f"sinkhorn kernel launch failed: cudaError_t {err}")
-    COUNTER.launches += 1
-    COUNTER.shapes.add((B, N, K))
+    COUNTER.count((B, N, K), C.dtype)
     return out
 
 

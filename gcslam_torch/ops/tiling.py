@@ -4,6 +4,7 @@ packed int64 tile id with 21 bits per axis and a fixed bias."""
 
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import List, Tuple
 
 import numpy as np
@@ -56,9 +57,16 @@ def stencil_offsets(radius_xy: int, radius_z: int) -> np.ndarray:
     return np.asarray(rows, dtype=np.int64)
 
 
+@lru_cache(maxsize=None)
+def _stencil_offsets_on(radius_xy: int, radius_z: int, device: torch.device) -> torch.Tensor:
+    """stencil_offsets on `device`, made once per (radii, device): a copy
+    from the host each step would synchronize with the card. Read only."""
+    return torch.as_tensor(stencil_offsets(radius_xy, radius_z), device=device)
+
+
 def stencil_tile_ids(center_xyz: torch.Tensor, radius_xy: int, radius_z: int,
                      h_tile: float = C.H_TILE) -> torch.Tensor:
     """(S,) int64 tile ids of the stencil around center_xyz."""
     c1, c2, cz = hex_cells_from_xyz(center_xyz, h_tile)
-    offs = torch.as_tensor(stencil_offsets(radius_xy, radius_z), device=center_xyz.device)
+    offs = _stencil_offsets_on(int(radius_xy), int(radius_z), center_xyz.device)
     return tile_ids_from_cells(c1 + offs[:, 0], c2 + offs[:, 1], cz + offs[:, 2])

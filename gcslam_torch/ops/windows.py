@@ -19,7 +19,11 @@ def smooth_window_weights(
     end: torch.Tensor,
     sigma: torch.Tensor,
 ) -> torch.Tensor:
-    sig = torch.clamp(torch.as_tensor(sigma, dtype=stamps.dtype, device=stamps.device), min=1e-6)
+    if isinstance(sigma, torch.Tensor):  # no torch.as_tensor on the step's path
+        sig = sigma.to(device=stamps.device, dtype=stamps.dtype)
+    else:
+        sig = torch.as_tensor(sigma, dtype=stamps.dtype, device=stamps.device)
+    sig = torch.clamp(sig, min=1e-6)
     sig = sig.unsqueeze(-1)
     a = (stamps - start) / sig
     b = (end - stamps) / sig

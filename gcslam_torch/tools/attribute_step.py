@@ -6,9 +6,10 @@ steady-state time, and report each variant's delta against the base.
 On the card the step is eager PyTorch: a stage costs the host time to
 launch its kernels plus whatever device time the launches do not hide, and
 a variant's delta measures both in context. Per variant:
-  - ms_p50 / ms_mean: per-step host-clock time, each step ending in
-    torch.cuda.synchronize(); with --replay N instead ms_per_scan, an
-    N-scan run_bag timed the same way;
+  - ms_p50 / ms_mean: per-step host-clock time of the eager step, each
+    step ending in torch.cuda.synchronize(); with --replay N instead
+    ms_per_scan, an N-scan run_bag timed the same way (on the card
+    run_bag replays the compiled step, models/runner.CompiledStep);
   - ms_read: the time of a device-to-host read of one pose value (what the
     JAX tool reads to anchor its timestamps);
   - first_call_s: the first scan, including the one-time nvcc build of
@@ -16,8 +17,9 @@ a variant's delta measures both in context. Per variant:
     compile_s, which has no counterpart: nothing is compiled per config);
   - launch_calls_per_scan and device_busy_ms_per_scan (with the other
     fields of utils/cuda_profile's record), from torch.profiler over
-    `PROFILE_SCANS` scans: the runtime's kernel-launch calls and the
-    device's summed kernel, copy and set time per scan, in place of the
+    `PROFILE_SCANS` eager steps (with --replay too: a graph replay is one
+    launch call whatever the variant): the runtime's kernel-launch calls
+    and the device's summed kernel, copy and set time per scan, in place of the
     JAX tool's XLA cost analysis (gflops, gbytes), which has no
     counterpart for an eager step (None on the CPU);
   - sinkhorn_launches_per_scan: the Sinkhorn kernel's launch counter
@@ -122,7 +124,8 @@ def measure_replay(cfg, batches, device) -> dict:
     _sync(device)
     rep["ms_per_scan"] = round((time.perf_counter() - t0) / n * 1e3, 3)
     rep["sinkhorn_launches_per_scan"] = sinkhorn.COUNTER.launches / n if device.type == "cuda" else None
-    rep.update(profile(lambda: runner.run_bag(batches[:PROFILE_SCANS], cfg, device=device), PROFILE_SCANS,
+    span = [b.to(device) for b in batches[:PROFILE_SCANS]]
+    rep.update(profile(lambda: runner.eager_steps(runner.init_state(cfg, device=device), span, cfg), PROFILE_SCANS,
                        device))
     return rep
 

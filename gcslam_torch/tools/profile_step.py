@@ -10,8 +10,12 @@ counterpart:
   - compute: models/manifest.compute_cert on one step (the FLOPs of its
     matrix products, argument and output bytes, peak device memory): the
     JAX tool's cost_analysis and memory_analysis;
-  - timing: StepTimer percentiles over --steps steps, each ending in a
-    synchronize of the card;
+  - timing: StepTimer percentiles over --steps eager steps, each ending
+    in a synchronize of the card;
+  - graph (on the card): the same steps as replays of the compiled step
+    (models/runner.CompiledStep, what the runners run there): its first
+    step (eager, then the capture) and capture seconds, and the timing of
+    the replays after it; the JAX tool's step is its jitted program;
   - top_kernels: the 15 most-launched kernel names in one profiled step
     (utils/cuda_profile), or on the CPU the 15 most-dispatched aten ops:
     the JAX tool's hlo_top_ops;
@@ -88,11 +92,29 @@ def main(argv=None) -> dict:
             with timer.measure(out_ref=b):
                 state, out = step(state, b)
 
+    graph = None
+    if device.type == "cuda":
+        from gcslam_torch.models import runner
+
+        loop = runner.StepLoop(cfg, state, len(batches) - 3)
+        gtimer = StepTimer()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            _, gout = loop.step(batches[3])
+            torch.cuda.synchronize(device)
+            first_s = time.perf_counter() - t0
+            for b in batches[4:]:
+                with gtimer.measure(out_ref=b):
+                    _, gout = loop.step(b)
+        graph = {"first_scan_s": round(first_s, 3), "capture_s": round(loop.compiled.capture_s, 3),
+                 "timing": gtimer.summary(), "finite": bool(np.all(np.isfinite(COUNTERS.to_host(gout.pose))))}
+
     report = {
         "device": device.type,
         "device_name": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
         "first_scan_s": round(first_scan_s, 3),
         "timing": timer.summary(),
+        "graph": graph,
         "compute": compute,
         "top_kernels": dict(top.most_common(TOP_KERNELS)),
         "finite": bool(np.all(np.isfinite(COUNTERS.to_host(out.pose)))),

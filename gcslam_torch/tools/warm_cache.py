@@ -3,11 +3,14 @@ and one chunk (counterpart of the JAX package's tools/warm_cache.py, the
 deploy-time step before a robot or eval.run boots).
 
 The JAX tool compiles the pipeline's XLA programs into a persistent cache.
-The port's step is eager and compiles nothing per config: what a fresh
-process would otherwise build is its three native libraries, each into
-gcslam_torch/csrc/build/ under a name that hashes its source and flags:
+The port's step builds nothing per config on disk (on the card each
+process captures its compiled step, a CUDA graph, at its first scan of a
+config): what a fresh process would otherwise build is its four native
+libraries, each into gcslam_torch/csrc/build/ under a name that hashes its
+source and flags:
 
-  - csrc/sinkhorn.cu and csrc/raster.cu, with nvcc for sm_90a (the card);
+  - csrc/sinkhorn.cu, csrc/raster.cu and csrc/eigh.cu, with nvcc for
+    sm_90a (the card);
   - csrc/bag_decode.cpp, with g++ (the host).
 It reports, for each, whether it was already built and the seconds to
 build (when it was not) and load it; then the seconds of one flagship
@@ -37,12 +40,13 @@ def libraries(cpu: bool):
     """name -> (library path, build-and-load function) for the libraries
     of the route: the host decoder alone with cpu."""
     from gcslam_torch.frontend import native
-    from gcslam_torch.ops import sinkhorn
+    from gcslam_torch.ops import eigh, sinkhorn
     from gcslam_torch.outputs import raster
 
     libs = {"bag_decode": (native.library_path, native.library)}
     if not cpu:
-        libs.update(sinkhorn=(sinkhorn.library_path, sinkhorn.load), raster=(raster.library_path, raster.load))
+        libs.update(sinkhorn=(sinkhorn.library_path, sinkhorn.load), raster=(raster.library_path, raster.load),
+                    eigh=(eigh.library_path, eigh.load))
     return libs
 
 

@@ -6,6 +6,10 @@ profile_record(fn, n) runs fn() (n scans) under the profiler and returns,
 per scan:
   - launch_calls_per_scan: the runtime's kernel-launch calls
     (cudaLaunchKernel, cuLaunchKernel) on the host;
+  - graph_launches_per_scan: its CUDA graph launches (cudaGraphLaunch):
+    the compiled step (models/runner.CompiledStep) makes one a scan, the
+    eager step none; a graph's kernels are device kernels, not launch
+    calls;
   - device_kernels_per_scan: the kernels the device ran (copies and sets
     left out);
   - device_busy_ms_per_scan: the device's summed kernel, copy and set time;
@@ -24,13 +28,16 @@ import collections
 import time
 
 # the keys of profile_record's result
-FIELDS = ("launch_calls_per_scan", "device_kernels_per_scan", "device_busy_ms_per_scan", "profiled_span_ms_per_scan",
-          "device_busy_share")
+FIELDS = ("launch_calls_per_scan", "graph_launches_per_scan", "device_kernels_per_scan", "device_busy_ms_per_scan",
+          "profiled_span_ms_per_scan", "device_busy_share")
 # the runtime calls that launch a kernel (cudaLaunchKernelExC, the
 # Sinkhorn's cluster launch, among them)
 LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel")
+GRAPH_LAUNCHES = ("cudaGraphLaunch", "cuGraphLaunch")
 # device activity that is not a kernel
 NOT_KERNELS = ("Memcpy", "Memset")
+# what torch.cuda.set_sync_debug_mode("warn") says at a synchronizing operation
+SYNC_WARNING = "called a synchronizing CUDA operation"
 
 
 def profile(fn, activities=("cpu", "cuda")):
@@ -82,10 +89,12 @@ def record(events, span_ms: float, n: int) -> dict:
     from torch.autograd import DeviceType
 
     launch_calls = sum(1 for e in events if e.device_type() == DeviceType.CPU and is_launch(e.name()))
+    graph_launches = sum(1 for e in events if e.device_type() == DeviceType.CPU and e.name().startswith(GRAPH_LAUNCHES))
     dev = device_activity(events)
     kernels = sum(1 for e in dev if not e.name().startswith(NOT_KERNELS))
     busy_us = sum(e.duration_ns() for e in dev) / 1e3
     return dict(launch_calls_per_scan=launch_calls / n if launch_calls else None,
+                graph_launches_per_scan=graph_launches / n,
                 device_kernels_per_scan=kernels / n if kernels else None,
                 device_busy_ms_per_scan=busy_us / 1e3 / n if busy_us else None,
                 profiled_span_ms_per_scan=span_ms / n,
@@ -119,7 +128,9 @@ def implicit_syncs(fn) -> collections.Counter:
         finally:
             torch.cuda.set_sync_debug_mode(prev)
     for w in caught:
-        if "synchroniz" in str(w.message):
+        # the sync warning itself, not the mode's one-time "prototype
+        # feature" notice (which also says "synchronizing")
+        if SYNC_WARNING in str(w.message):
             path = os.path.relpath(w.filename, root) if w.filename.startswith(root) else w.filename
             sites[f"{path}:{w.lineno}"] += 1
     return sites

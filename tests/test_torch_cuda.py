@@ -1,7 +1,8 @@
-"""gcslam_torch on the card: the CUDA Sinkhorn and splat-raster kernels
-against their plain PyTorch versions, the scan step, the camera path, the
-map render and the bag replay on CUDA against the same on the CPU, and the
-bag decoder's build on the card's host.
+"""gcslam_torch on the card: the CUDA Sinkhorn, splat-raster and eigen
+kernels against their plain PyTorch versions, the scan step, the camera
+path, the map render and the bag replay on CUDA against the same on the
+CPU, the compiled step (a captured CUDA graph) against the eager step, and
+the bag decoder's build on the card's host.
 Marked `cuda`; skips where torch.cuda.is_available() is false. This file
 imports no JAX, so it runs on a GPU machine without it:
 
@@ -15,7 +16,7 @@ import torch
 from gcslam_torch.frontend.synthetic import T_BASE_CAM, SyntheticConfig, generate
 from gcslam_torch.models import runner
 from gcslam_torch.models.config import PipelineConfig
-from gcslam_torch.ops import se3, sinkhorn
+from gcslam_torch.ops import eigh, se3, sinkhorn
 from gcslam_torch.outputs import raster, rendering
 
 pytestmark = pytest.mark.cuda
@@ -105,29 +106,17 @@ def test_per_hypothesis_run_bag_on_cuda_matches_cpu(cuda):
     """The per-hypothesis map branch (map_share_extraction=False,
     map_gn_shared=False) over 3 scans on the card and on the CPU: poses
     within the tolerance of test_run_bag_on_cuda_matches_cpu, and on the card
-    one Sinkhorn launch per GN round, each on all K_HYP problems."""
+    one Sinkhorn launch per GN round, each on all K_HYP problems (counted
+    over the compiled step's replays: its captured association runs once)."""
     from gcslam_torch import constants as C
-    from gcslam_torch.ops import association
 
     batches = generate(SyntheticConfig(n_scans=3, n_points=512), device="cpu").batches
     cfg = PipelineConfig(map_share_extraction=False, map_gn_shared=False, **SMALL)
     _, cpu = runner.run_bag(batches, cfg, device="cpu")
-    shapes = []
-    real = association.sinkhorn_unbalanced
-
-    def recording(Cm, *args):
-        shapes.append(tuple(Cm.shape))
-        return real(Cm, *args)
-
-    association.sinkhorn_unbalanced = recording
-    try:
-        before = sinkhorn.COUNTER.launches
-        _, gpu = runner.run_bag(batches, cfg, device=cuda)
-        launches = sinkhorn.COUNTER.launches - before
-    finally:
-        association.sinkhorn_unbalanced = real
-    assert launches == cfg.map_icp_iters * 3
-    assert shapes == [(C.K_HYP, cfg.n_surfel, cfg.k_assoc)] * launches
+    sinkhorn.COUNTER.reset()
+    _, gpu = runner.run_bag(batches, cfg, device=cuda)
+    assert sinkhorn.COUNTER.launches == cfg.map_icp_iters * 3
+    assert sinkhorn.COUNTER.shapes == {(C.K_HYP, cfg.n_surfel, cfg.k_assoc)}
     np.testing.assert_allclose(gpu.pose.cpu().numpy(), cpu.pose.numpy(), rtol=0, atol=1e-5)
 
 
@@ -540,3 +529,109 @@ def test_microbench_scatter_on_the_card(cuda):
     for r in rows:
         if r["name"].startswith("binned_scatter_accumulate"):
             assert torch.equal(r["out"], again[r["name"]])
+
+
+def _sym_batch(shape, n, seed, dtype):
+    rng = np.random.default_rng(seed)
+    A = rng.normal(size=shape + (n, n))
+    return torch.as_tensor(A @ np.swapaxes(A, -1, -2) - 0.5 * n * np.eye(n), dtype=dtype)
+
+
+# eigh3: the kernel does the plain chain's rotations in IEEE order, but the
+# chain's 3 x 3 products go to cuBLAS (other sums, fused multiply-adds):
+# eigenvalues and the reconstruction V diag(lam) V^T agree within a few
+# ulp of max|lam|
+EIGH3_RTOL = {torch.float64: 1e-14, torch.float32: 1e-6}
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("shape", [(), (1,), (7,), (4, 3), (8192,)])
+def test_eigh3_kernel_matches_plain(cuda, dtype, shape):
+    M = _sym_batch(shape, 3, seed=len(shape) + 3, dtype=dtype).to(cuda)
+    before = eigh.EIGH3_COUNTER.launches
+    lam, V = eigh.eigh3(M)
+    lam2, V2 = eigh.eigh3(M)
+    ref_lam, ref_V = eigh.eigh3_reference(M)
+    torch.cuda.synchronize()
+    assert eigh.EIGH3_COUNTER.launches == before + 2
+    assert torch.equal(lam, lam2) and torch.equal(V, V2)
+    scale = ref_lam.abs().amax(-1, keepdim=True)
+    assert torch.all((lam - ref_lam).abs() <= EIGH3_RTOL[dtype] * scale)
+    rec = (V * lam[..., None, :]) @ V.transpose(-1, -2)
+    ref_rec = (ref_V * ref_lam[..., None, :]) @ ref_V.transpose(-1, -2)
+    assert torch.all((rec - ref_rec).abs().amax((-2, -1)) <= 4 * EIGH3_RTOL[dtype] * scale[..., 0])
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n,shape", [(6, ()), (6, (7,)), (22, (1,)), (22, (4,)), (5, (3,)), (32, (2,)), (1, (2,))])
+def test_eigh_sym_kernel_matches_plain(cuda, dtype, n, shape):
+    """The kernel performs its plain version's operations in order (both
+    built without contraction): equal to the bit; and close to
+    torch.linalg.eigh."""
+    M = _sym_batch(shape, n, seed=n, dtype=dtype).to(cuda)
+    before = eigh.EIGH_SYM_COUNTER.launches
+    lam, V = eigh.eigh_sym(M)
+    ref_lam, ref_V = eigh.eigh_sym_reference(M)
+    torch.cuda.synchronize()
+    assert eigh.EIGH_SYM_COUNTER.launches == before + 1
+    assert torch.equal(lam, ref_lam) and torch.equal(V, ref_V)
+    lib = torch.linalg.eigvalsh(M)
+    tol = {torch.float64: 1e-13, torch.float32: 1e-5}[dtype]
+    assert torch.all((lam - lib).abs() <= tol * lib.abs().amax(-1, keepdim=True))
+
+
+def test_eigh_vmap_is_one_launch_and_refuses_what_it_does_not_take(cuda):
+    M = _sym_batch((3, 2), 22, seed=1, dtype=torch.float64).to(cuda)
+    before = eigh.EIGH_SYM_COUNTER.launches
+    out = torch.func.vmap(eigh.eigh_sym)(M)
+    assert eigh.EIGH_SYM_COUNTER.launches == before + 1 and (6, 22, 22) in eigh.EIGH_SYM_COUNTER.shapes
+    per = [eigh.eigh_sym(M[r]) for r in range(3)]
+    assert torch.equal(out[0], torch.stack([p[0] for p in per]))
+    with pytest.raises(ValueError):
+        eigh.eigh_sym(torch.zeros(2, 33, 33, dtype=torch.float64, device=cuda))
+    with pytest.raises(TypeError):
+        eigh.eigh3(torch.zeros(2, 3, 3, dtype=torch.float16, device=cuda))
+    lam, V = eigh.eigh3(torch.zeros(0, 3, 3, dtype=torch.float64, device=cuda))
+    assert lam.shape == (0, 3) and V.shape == (0, 3, 3)
+
+
+def test_an_eager_step_makes_no_implicit_sync(cuda):
+    from gcslam_torch.models.scan_step import init_state, scan_step
+
+    cfg = PipelineConfig(**SMALL)
+    run = generate(SyntheticConfig(n_scans=3, n_points=1024), device=cuda)
+    with torch.no_grad():
+        state, _ = scan_step(init_state(cfg, device=cuda), run.batches[0], cfg)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for b in run.batches[1:]:
+                state, out = scan_step(state, b, cfg)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert torch.isfinite(out.pose).all()
+
+
+def test_compiled_step_replays_equal_the_eager_step(cuda):
+    """run_bag on the card replays the captured step: poses and tape equal
+    the eager scan_step loop's bit for bit, the Sinkhorn counts two launches
+    a scan over the replays, and a second run_bag replays every scan."""
+    from gcslam_torch.models.scan_step import init_state
+    from gcslam_torch.utils.tree import tree_leaves
+
+    cfg = PipelineConfig(**SMALL)
+    batches = generate(SyntheticConfig(n_scans=6, n_points=1024), device=cuda).batches
+    runner.release_graphs()
+    sinkhorn.COUNTER.reset()
+    state_g, out_g = runner.run_bag(batches, cfg, device=cuda)
+    step = runner.compiled_steps()[-1]
+    assert step.graph is not None and step.replays == 5 and step.capture_s > 0
+    assert sinkhorn.COUNTER.launches == cfg.map_icp_iters * 6
+    state_e, out_e = runner.eager_steps(init_state(cfg, device=cuda), batches, cfg)
+    for a, b in zip(tree_leaves(out_e) + tree_leaves(state_e), tree_leaves(out_g) + tree_leaves(state_g)):
+        assert torch.equal(a, b)
+    sinkhorn.COUNTER.reset()
+    _, out_2 = runner.run_bag(batches, cfg, device=cuda)
+    assert step.replays == 11 and sinkhorn.COUNTER.launches == cfg.map_icp_iters * 6
+    assert torch.equal(out_2.pose, out_g.pose)
+    runner.release_graphs()

@@ -1,0 +1,136 @@
+"""The compiled step's CPU guards (gcslam_torch/models/runner.py):
+
+  - a scan_step after the first makes no call that copies a value between
+    the host and the device (torch.tensor, torch.as_tensor, .item(),
+    .tolist(), .numpy(), float() / int() / bool() of a tensor), so nothing
+    in it synchronizes with the card and nothing of its data is frozen
+    into a captured CUDA graph; and every symmetric eigendecomposition in
+    it goes through ops/eigh;
+  - the compiled step's body (static state and batch buffers, the new
+    state copied into the state buffers, each scan's outputs copied into
+    the run's stacked outputs), run without capture on the CPU, gives
+    run_bag's eager poses, tape and final state bit for bit;
+  - the graph cache keeps MAX_GRAPHS steps, least recently used out first;
+  - a launch counter's capture counts move to every replay.
+"""
+
+import collections
+import traceback
+
+import pytest
+import torch
+from torch.overrides import TorchFunctionMode
+
+from gcslam_torch.frontend.synthetic import SyntheticConfig, generate
+from gcslam_torch.models import runner
+from gcslam_torch.models.config import PipelineConfig
+from gcslam_torch.models.scan_io import stack_scan_batches
+from gcslam_torch.models.scan_step import init_state, scan_step
+from gcslam_torch.ops.cuda_build import LaunchCounter
+from gcslam_torch.utils.tree import tree_leaves
+
+SMALL = dict(with_map=True, atlas_max_tiles=16, m_tile=128, m_tile_view=64, n_surfel=128,
+             surfel_voxel_size_m=0.5)
+HOST_VALUES = {torch.tensor, torch.as_tensor, torch.Tensor.item, torch.Tensor.tolist, torch.Tensor.numpy,
+               torch.Tensor.__float__, torch.Tensor.__int__, torch.Tensor.__bool__, torch.Tensor.__index__}
+EIGEN = {torch.linalg.eigh, torch.linalg.eigvalsh, torch.linalg.eig, torch.linalg.eigvals, torch.linalg.svd}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def world():
+    return generate(SyntheticConfig(n_scans=5, n_points=512), device="cpu")
+
+
+class CallSites(TorchFunctionMode):
+    """The Python file:line that called each watched torch function."""
+
+    def __init__(self, watched):
+        super().__init__()
+        self.watched = watched
+        self.sites = collections.Counter()
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if func in self.watched:
+            frame = traceback.extract_stack()[-2]
+            self.sites[(func.__name__, f"{frame.filename}:{frame.lineno}")] += 1
+        return func(*args, **(kwargs or {}))
+
+
+def test_a_second_step_moves_no_value_between_host_and_device(world):
+    cfg = PipelineConfig(**SMALL)
+    with torch.no_grad():
+        state, _ = scan_step(init_state(cfg, device="cpu"), world.batches[0], cfg)  # makes the constant caches
+        probe = CallSites(HOST_VALUES)
+        with probe:
+            torch.tensor([1.0])  # the mode does see these calls
+        assert sum(probe.sites.values()) == 1
+        host, eigen = CallSites(HOST_VALUES), CallSites(EIGEN)
+        with host, eigen:
+            scan_step(state, world.batches[1], cfg)
+    assert not host.sites, dict(host.sites)
+    assert eigen.sites and all(site.replace("\\", "/").rsplit(":", 1)[0].endswith("gcslam_torch/ops/eigh.py")
+                               for _, site in eigen.sites), dict(eigen.sites)
+
+
+def test_compiled_body_equals_eager_run_bag(world):
+    cfg = PipelineConfig(**SMALL)
+    state_e, out_e = runner.run_bag(world.batches, cfg, device="cpu")
+    stacked = stack_scan_batches(world.batches)
+    state0 = init_state(cfg, device="cpu")
+    loop = runner.StepLoop(cfg, state0, 5)  # on the CPU the eager step: give it the body without capture
+    loop.use_compiled, loop.compiled = True, runner.CompiledStep(cfg, state0, world.batches[0], capture=False)
+    with torch.no_grad():
+        for i in range(5):
+            live, out_i = loop.step(runner._scan_at(stacked, i))
+            assert live is loop.compiled.state  # the state buffers, updated in place
+            assert torch.equal(out_i.pose, loop.stacked[0][i])  # a row of the stacked outputs
+    state_c, out_c = loop.result()
+    assert loop.compiled.graph is None and isinstance(out_c.tape, type(out_e.tape))
+    for a, b in zip(tree_leaves(out_e), tree_leaves(out_c)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    for a, b in zip(tree_leaves(state_e), tree_leaves(state_c)):
+        assert torch.equal(a, b)
+    assert all(x.data_ptr() != y.data_ptr() for x, y in zip(tree_leaves(state_c), tree_leaves(loop.compiled.state)))
+
+
+def test_graph_cache_keeps_the_most_recent_steps(world):
+    runner.release_graphs()
+    batch = world.batches[0]
+    states = {}
+    for k in (1, 2, 3):
+        cfg = PipelineConfig(with_map=False, k_hyp=k)
+        states[k] = init_state(cfg, device="cpu")
+        step = runner.compiled_step(cfg, states[k], batch)
+        assert step.graph is None and step.config == cfg
+    assert [s.config.k_hyp for s in runner.compiled_steps()] == [3 - runner.MAX_GRAPHS + 1 + i
+                                                                 for i in range(runner.MAX_GRAPHS)]
+    cfg3 = PipelineConfig(with_map=False, k_hyp=3)
+    again = runner.compiled_step(cfg3, states[3]._replace(scan_count=states[3].scan_count + 7), batch)
+    assert again is runner.compiled_steps()[-1] and int(again.state.scan_count) == 7  # reloaded in place
+    runner.release_graphs()
+    assert runner.compiled_steps() == []
+
+
+def test_launch_counter_moves_capture_counts_to_replays():
+    c = LaunchCounter()
+    c.count((1, 1024, 8), torch.float64)
+    saved = c.snapshot()
+    c.reset()
+    c.count((2, 22, 22), torch.float32)  # what a capture records
+    c.count((2, 22, 22), torch.float32)
+    captured = c.snapshot()
+    c.restore(saved)
+    assert (c.launches, c.shapes) == (1, {(1, 1024, 8)})
+    for _ in range(3):  # three replays
+        c.add(captured)
+    assert c.launches == 7 and c.by_instance == {("float64", (1, 1024, 8)): 1, ("float32", (2, 22, 22)): 6}
+    assert c.shapes == {(1, 1024, 8), (2, 22, 22)}
+    LaunchCounter.instances.remove(c)
