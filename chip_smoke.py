@@ -25,7 +25,15 @@ Phases, in order; any failure exits non-zero before the result line:
      f32, against their plain versions (eigenvalues and V diag(lambda) V^T
      within 1e-14 of max|lambda| in f64, 1e-6 in f32; whether bit-equal),
      two launches bit-equal, beside torch.linalg.eigh's time on the same
-     batch; after the last phase, the same check on every other eigh
+     batch (events, which include its host sync, and device, the sum of its
+     kernels) and, for eigh_sym, the chain floor (one thread running the
+     rotation lane's dependent chain for the call's rounds,
+     eigh_sym_chain_kernel, held to its plain version); every kernel's
+     device time comes from a torch.profiler trace whose window pads the
+     calls with idle host time, and a kernel the trace does not hold fails
+     the phase; eigh_sym at (1, 22, 22) and (4, 22, 22) f64 on random
+     spectra too, since the library's time depends on the input; after the
+     last phase, the same check on every other eigh
      instance a path's counted run launched (the camera frontend's, the
      sweeps' folded batches, the f32 child's, the mesh ranks'), on that
      path's first input of it;
@@ -164,8 +172,9 @@ Phases, in order; any failure exits non-zero before the result line:
      kernels within tests/test_torch_slice.py's tolerances; eager and
      graph ms/scan over 10 scans in 3 interleaved pairs; a torch.profiler
      record of 3 replays (the Sinkhorn and eigh launches the counters
-     credit over them equal to the kernels in its trace) and of 3 eager
-     steps. With --phases 1,2,18 it runs alone after phases 1-2.
+     credit over them equal to the kernels in its trace, and each kernel's
+     device ms a scan) and of 3 eager steps. With --phases 1,2,18 it runs
+     alone after phases 1-2.
 Before the last line it prints {"paths": ...} and {"kernels": [...]}, one
 kernel record per instance the main paths launch (dtype and shape), and
 fails if one was never launched; the last line is {"ok": true, "device":
@@ -358,6 +367,14 @@ EIGH_RTOL = {"float64": 1e-14, "float32": 1e-6}
 EIGH3_FLOPS = 18 * (26 + 3 * 18) + 35
 EIGH_REPLACES = {"eigh3": "gcslam_tpu/ops/linalg.py:160", "eigh_sym": "gcslam_tpu/ops/linalg.py:45"}
 EIGH_RECORD_AFTER = 3  # phase 2 records the eigh inputs of flagship scan 3, after scans 0-2
+# device_trace: idle host time inside a profiled window on either side of
+# the calls, and the traces device_ms takes before it fails
+DEVICE_TRACE_PAD_S = 0.02
+DEVICE_TRACE_TRIES = 3
+DEVICE_TRACE_LOG = []  # attempts and margins of every device_ms of this run
+CHAIN_FLOOR_MS = {}  # eigh_sym's chain floor by (dtype, n)
+CHAIN_BLOCK_SEED = 0  # the chain floor's 4 x 4 block
+EIGH_RANDOM_SEED = 12  # phase 2's random-spectrum eigh_sym inputs
 # phase 18, the compiled step
 N_SYNC_SCANS = 3  # eager flagship scans under set_sync_debug_mode("error")
 N_TIMING_PAIRS = 3  # interleaved (eager, graph) timings
@@ -425,48 +442,93 @@ def time_call(fn, n: int = 50) -> float:
 
 def ptxas_summary(log: str):
     """One line per compiled kernel instance from nvcc's -Xptxas -v output:
-    name (template arguments), registers, spill stores, shared memory."""
+    name (template arguments), registers, stack frame, spill stores, shared
+    memory."""
     import re
 
-    out, name, spill = [], None, ""
+    out, name, frame, spill = [], None, "", ""
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             t = re.search(r"sinkhorn_kernelI([fd])Li(\d+)E", m.group(1))
-            e = re.search(r"(eigh3_kernel|eigh_sym_kernel)I([fd])(?:Li(\d+)E)?E", m.group(1))
+            e = re.search(r"(eigh3_kernel|eigh_sym_kernel|eigh_sym_chain_kernel)I([fd])(?:Li(\d+)E)?E", m.group(1))
             name = (f"sinkhorn_kernel<{'float' if t.group(1) == 'f' else 'double'}, KMAX={t.group(2)}>" if t
                     else (f"{e.group(1)}<{'float' if e.group(2) == 'f' else 'double'}"
                           + ("" if e.group(3) is None else f", n={e.group(3) if e.group(3) != '0' else 'any'}")
                           + ">") if e
                     else "raster_kernel" if "raster_kernel" in m.group(1) else m.group(1))
         elif "spill stores" in line:
-            spill = line.strip().split(",")[1].strip()
+            frame, spill = (x.strip() for x in line.strip().split(",")[:2])
         elif "Used" in line and "registers" in line and name:
             regs = re.search(r"Used (\d+) registers", line).group(1)
             smem = re.search(r"(\d+) bytes smem", line)
-            out.append(f"{name}: {regs} registers, {spill}, {smem.group(1) if smem else 0} bytes smem")
+            out.append(f"{name}: {regs} registers, {frame}, {spill}, {smem.group(1) if smem else 0} bytes smem")
             name = None
     return out
 
 
-def device_ms(fn, kernel: str, n: int = 20):
-    """The kernel's own device time per launch (ms), from the device
-    activity of a torch.profiler trace of n calls (its raw events, as
-    utils/cuda_profile reads them); None where the trace holds no such
-    kernel."""
+def device_trace(fn, n: int, pad_s: float = DEVICE_TRACE_PAD_S):
+    """The device activity of n calls of fn in a torch.profiler trace (its
+    raw events, as utils/cuda_profile reads them), and the host clock's
+    margins in ms between the calls and the trace's first and last device
+    events. The window holds pad_s of idle host time before the calls and
+    after their synchronize: the profiler keeps only device events whose
+    timestamps, converted to the host's clock, fall inside its window, so a
+    window that ends as the last kernel ends can lose them to an offset
+    between the two clocks (check_eigh traces each instance without the pad
+    too, and records what that trace held)."""
     import torch
     from gcslam_torch.utils import cuda_profile
 
     fn()
     torch.cuda.synchronize()
+    marks = {}
 
     def calls():
+        time.sleep(pad_s)
+        marks["start"] = time.time_ns()
         for _ in range(n):
             fn()
+        torch.cuda.synchronize()
+        marks["end"] = time.time_ns()
+        time.sleep(pad_s)
 
     prof, _ = cuda_profile.profile(calls)
-    events = [e for e in cuda_profile.device_activity(cuda_profile.raw_events(prof)) if kernel in e.name()]
-    return sum(e.duration_ns() for e in events) / len(events) / 1e6 if events else None
+    events = cuda_profile.device_activity(cuda_profile.raw_events(prof))
+    margins = None
+    if events:
+        margins = ((min(e.start_ns() for e in events) - marks["start"]) / 1e6,
+                   (marks["end"] - max(e.start_ns() + e.duration_ns() for e in events)) / 1e6)
+    return events, margins
+
+
+def device_ms(fn, kernel: str, n: int = 20, label: str = None):
+    """The kernel's own device time per launch (ms): the mean over its
+    launches in device_trace of n calls, traced again up to
+    DEVICE_TRACE_TRIES times while the trace holds none of them; fails
+    with the instance's label if none does."""
+    for attempt in range(DEVICE_TRACE_TRIES):
+        events, margins = device_trace(fn, n)
+        mine = [e for e in events if kernel in e.name()]
+        if mine:
+            DEVICE_TRACE_LOG.append(dict(label=label or kernel, attempts=attempt + 1, events=len(mine),
+                                         margins_ms=margins))
+            return sum(e.duration_ns() for e in mine) / len(mine) / 1e6
+        print(f"device trace of {label or kernel}: {len(events)} device events, none of {kernel} "
+              f"(attempt {attempt + 1} of {DEVICE_TRACE_TRIES})", flush=True)
+    fail(f"{label or kernel}: no {kernel} in {DEVICE_TRACE_TRIES} device traces of {n} calls")
+
+
+def library_device_ms(fn, n: int, label: str) -> float:
+    """The device time per call of a library call (ms): the sum of the
+    kernels (copies and sets left out) in device_trace of n calls."""
+    from gcslam_torch.utils import cuda_profile
+
+    events, _ = device_trace(fn, n)
+    kernels = [e for e in events if not e.name().startswith(cuda_profile.NOT_KERNELS)]
+    if not kernels:
+        fail(f"{label}: no kernel in a device trace of {n} calls")
+    return sum(e.duration_ns() for e in kernels) / n / 1e6
 
 
 def fmt_us(ms) -> str:
@@ -564,7 +626,7 @@ def phase_sinkhorn(device):
             call = lambda: sinkhorn.sinkhorn_unbalanced(C, a, b, **SINKHORN_ARGS)  # noqa: E731
             ms = time_call(call)
             plain_ms = time_call(lambda: sinkhorn.sinkhorn_unbalanced_reference(C, a, b, **SINKHORN_ARGS))
-            dev_ms = device_ms(call, "sinkhorn_kernel")
+            dev_ms = device_ms(call, "sinkhorn_kernel", label=f"sinkhorn {name} {(B, N, K)}")
             peak = PEAK_F64_PER_S if dtype == torch.float64 else PEAK_F32_PER_S
             bound_ms, bound_by = sinkhorn_bound(B, N, K, n_iters, C.element_size(), peak)
             print(f"sinkhorn {name} B={B} N={N} K={K}: cluster {cl} x {threads} threads, max|err| {err:.3e}, "
@@ -727,45 +789,83 @@ def eigh_errors(lam, V, lam_p, V_p):
             float(((rec - rec_p).abs().amax((-2, -1)) / scale[..., 0]).max()))
 
 
-def check_eigh(name: str, M):
+def chain_floor_ms(M) -> float:
+    """eigh_sym's latency floor on the card for M's dtype and n (ms): one
+    thread runs ops/eigh.sym_rounds(n) dependent rounds of the rotation
+    lane's chain (eigh_sym_chain_kernel) on a fixed 4 x 4 symmetric block of
+    O(1) entries (CHAIN_BLOCK_SEED), whose rotations never fall below the
+    kernel's `small` guard: the chain of a lane that rotates in every round,
+    as some lane of the rotation warp does in nearly every round. Its
+    (c, s) must equal the plain version's."""
+    import numpy as np
+    import torch
+    from gcslam_torch.ops import eigh
+
+    n, dt = M.shape[-1], str(M.dtype).replace("torch.", "")
+    key = (dt, n)
+    if key not in CHAIN_FLOOR_MS:
+        A = np.random.default_rng(CHAIN_BLOCK_SEED).uniform(-1.0, 1.0, (4, 4))
+        blk = torch.as_tensor(0.5 * (A + A.T), dtype=M.dtype, device=M.device)
+        rounds = eigh.sym_rounds(n)
+        got, want = eigh.sym_chain(blk, rounds), eigh.sym_chain_reference(blk, rounds)
+        torch.cuda.synchronize()
+        if not (torch.equal(got, want) and torch.isfinite(got).all()):
+            fail(f"eigh_sym chain {dt} n={n}: {got.tolist()} against the plain version's {want.tolist()}")
+        CHAIN_FLOOR_MS[key] = device_ms(lambda: eigh.sym_chain(blk, rounds), "eigh_sym_chain_kernel",
+                                        label=f"eigh_sym chain {dt} n={n}")
+    return CHAIN_FLOOR_MS[key]
+
+
+def check_eigh(name: str, M, inputs: str = ""):
     """eigh3 or eigh_sym on the batch M against its plain version: finite,
-    two launches bit-equal, within EIGH_RTOL; times the kernel, its plain
-    version and torch.linalg.eigh on M; returns the instance's record."""
+    two launches bit-equal, within EIGH_RTOL; times the kernel (events and
+    device), its plain version and torch.linalg.eigh on M (events, which
+    include its host sync, and device, the sum of its kernels), and for
+    eigh_sym the chain floor; records how many of 20 launches a trace
+    without device_trace's pad holds; returns the instance's record.
+    `inputs` names inputs other than a path's in the printed label."""
     import torch
     from gcslam_torch.ops import eigh
 
     kernel = eigh.eigh3 if name == "eigh3" else eigh.eigh_sym
     plain = eigh.eigh3_reference if name == "eigh3" else eigh.eigh_sym_reference
     dt, shape = str(M.dtype).replace("torch.", ""), tuple(M.shape)
+    label = f"{name} {dt} {shape}" + (f" ({inputs})" if inputs else "")
     lam, V = kernel(M)
     lam2, V2 = kernel(M)
     lam_p, V_p = plain(M)
     torch.cuda.synchronize()
     if not (torch.isfinite(lam).all() and torch.isfinite(V).all()):
-        fail(f"{name} {dt} {shape}: non-finite output")
+        fail(f"{label}: non-finite output")
     if not (torch.equal(lam, lam2) and torch.equal(V, V2)):
-        fail(f"{name} {dt} {shape}: two launches differ")
+        fail(f"{label}: two launches differ")
     err_lam, err_rec = eigh_errors(lam, V, lam_p, V_p)
     exact = torch.equal(lam, lam_p) and torch.equal(V, V_p)
     if max(err_lam, err_rec) > EIGH_RTOL[dt]:
-        fail(f"{name} {dt} {shape}: kernel and plain version apart by {err_lam:.3e} (eigenvalues), "
+        fail(f"{label}: kernel and plain version apart by {err_lam:.3e} (eigenvalues), "
              f"{err_rec:.3e} (reconstruction) of max|lambda|, tolerance {EIGH_RTOL[dt]}")
     ms = time_call(lambda: kernel(M))
-    dev_ms = device_ms(lambda: kernel(M), f"{name}_kernel")
+    dev_ms = device_ms(lambda: kernel(M), f"{name}_kernel", label=label)
+    unpadded, _ = device_trace(lambda: kernel(M), 20, pad_s=0.0)
+    unpadded_found = sum(1 for e in unpadded if f"{name}_kernel" in e.name())
     plain_ms = time_call(lambda: plain(M), n=2 if name == "eigh_sym" else 5)
     library_ms = time_call(lambda: torch.linalg.eigh(M), n=10)
+    library_dev_ms = library_device_ms(lambda: torch.linalg.eigh(M), 10, f"torch.linalg.eigh {dt} {shape}")
+    floor_ms = chain_floor_ms(M) if name == "eigh_sym" else None
     B, n = shape[0], shape[-1]
     flops = B * (EIGH3_FLOPS if name == "eigh3" else eigh_sym_flops(n))
     bound_ms, bound_by = bound(M.element_size() * B * (2 * n * n + n), flops,
                                PEAK_F64_PER_S if M.dtype == torch.float64 else PEAK_F32_PER_S)
-    print(f"{name} {dt} {shape}: max |d lambda| {err_lam:.3e}, |d V L V^T| {err_rec:.3e} of max|lambda| "
+    print(f"{label}: max |d lambda| {err_lam:.3e}, |d V L V^T| {err_rec:.3e} of max|lambda| "
           f"({'bit-equal' if exact else 'not bit-equal'} to the plain version); kernel {ms * 1e3:.1f} "
-          f"us/call (events), device {fmt_us(dev_ms)}, plain {plain_ms * 1e3:.1f} us/call, "
-          f"torch.linalg.eigh {library_ms * 1e3:.1f} us/call (it syncs), bound {bound_ms * 1e3:.4f} us "
-          f"({bound_by})")
-    return dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=library_ms,
-                max_abs_err=float((lam - lam_p).abs().max()), rel_err=max(err_lam, err_rec), bit_equal=exact,
-                bound_ms=bound_ms, bound_by=bound_by)
+          f"us/call (events), device {fmt_us(dev_ms)}"
+          + ("" if floor_ms is None else f", chain floor {fmt_us(floor_ms)}")
+          + f", plain {plain_ms * 1e3:.1f} us/call, torch.linalg.eigh {library_ms * 1e3:.1f} us/call (events, "
+          f"with its sync) / {fmt_us(library_dev_ms)} (device), bound {bound_ms * 1e3:.4f} us ({bound_by}); "
+          f"an unpadded trace held {unpadded_found} of 20 launches")
+    return dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=library_ms, library_device_ms=library_dev_ms,
+                chain_floor_ms=floor_ms, max_abs_err=float((lam - lam_p).abs().max()), rel_err=max(err_lam, err_rec),
+                bit_equal=exact, bound_ms=bound_ms, bound_by=bound_by, unpadded_trace_found=unpadded_found)
 
 
 def phase_eigh(device):
@@ -785,6 +885,25 @@ def phase_eigh(device):
             if key not in records:
                 records[key] = check_eigh(name, M0.to(dtype))
     return records, per_scan
+
+
+def phase_eigh_random(device) -> dict:
+    """eigh_sym on random spectra at the step's 22 x 22 batches (f64): the
+    kernel's time is the same for any input, torch.linalg.eigh's is not, so
+    the comparison with the library is made on a second kind of input
+    beside the flagship scan's graded information matrices."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(EIGH_RANDOM_SEED)
+    out = {}
+    for B in (1, 4):
+        A = rng.normal(size=(B, 22, 22))
+        M = torch.as_tensor(A @ np.swapaxes(A, -1, -2) - 11.0 * np.eye(22), device=device)
+        rec = check_eigh("eigh_sym", M, inputs="random spectrum")
+        out[f"float64 {(B, 22, 22)}"] = {k: rec[k] for k in ("device_ms", "library_device_ms", "library_ms",
+                                                           "chain_floor_ms", "bit_equal")}
+    return out
 
 
 def phase_eigh_paths(records: dict) -> None:
@@ -893,7 +1012,7 @@ def phase_raster(device):
             fail(f"raster {label}: only {100 * drawn:.1f} % of pixels drawn")
         call = lambda: raster.composite_splats(s, H, W, params.log_clip)  # noqa: E731
         ms = time_call(call, n=50)
-        dev_ms = device_ms(call, "raster_kernel")
+        dev_ms = device_ms(call, "raster_kernel", label=f"raster {label}")
         plain_ms = time_call(lambda: raster.composite_splats_reference(s, H, W, params.log_clip), n=2)
         pairs, box_pairs, warp_share = raster_work(s, H, W, params.log_clip)
         bound_ms, bound_by = bound(P * 11 * 4 + H * W * 5 * 4, RASTER_FLOPS_PER_PAIR * pairs, PEAK_F32_PER_S)
@@ -2601,15 +2720,20 @@ def phase_compiled(device, run=None, out_flag=None):
     prof, span_ms = cuda_profile.profile(lambda: runner.run_bag(span[:N_PROFILE_SCANS], cfg, state=state,
                                                                 device=device))
     ran = cuda_profile.kernel_counts(prof)
+    raw = cuda_profile.raw_events(prof)
     credited = {k: c.launches for k, c in counted}
     on_device = {k: sum(n for name, n in ran.items() if k in name) for k, _ in counted}
-    rec["profile"] = {"graph": cuda_profile.record(cuda_profile.raw_events(prof), span_ms, N_PROFILE_SCANS),
+    busy = cuda_profile.device_activity(raw)
+    rec["kernel_device_ms_per_scan"] = {k: sum(e.duration_ns() for e in busy if k in e.name()) / 1e6 / N_PROFILE_SCANS
+                                        for k, _ in counted}
+    rec["profile"] = {"graph": cuda_profile.record(raw, span_ms, N_PROFILE_SCANS),
                       "eager": cuda_profile.profile_record(
                           lambda: runner.eager_steps(state, span[:N_PROFILE_SCANS], cfg), N_PROFILE_SCANS)}
     rec["replay_kernels_credited_vs_traced"] = {k: [credited[k], on_device[k]] for k in credited}
     print(f"compiled step: profile over {N_PROFILE_SCANS} scans: {fmt_profile(rec['profile'])}; kernels the "
           f"counters credit over the {N_PROFILE_SCANS} replays against the device's trace: "
-          + ", ".join(f"{k} {credited[k]} / {on_device[k]}" for k in credited))
+          + ", ".join(f"{k} {credited[k]} / {on_device[k]}" for k in credited) + "; their device ms a replayed scan: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in rec["kernel_device_ms_per_scan"].items()))
     if credited != on_device:
         fail(f"compiled step: the launch counters credit {credited} over {N_PROFILE_SCANS} replays, the device ran "
              f"{on_device}")
@@ -2658,6 +2782,7 @@ def main(argv=None) -> None:
     sk = phase_sinkhorn(device)
     rs = phase_raster(device)
     eg, eigh_per_scan = phase_eigh(device)
+    eigh_random = phase_eigh_random(device)
     lap("phases 1-2")
     EIGH_SEEN.install()  # the first input of every eigh instance the paths launch
 
@@ -2785,13 +2910,22 @@ def main(argv=None) -> None:
             launches=EIGH_LAUNCHES.get(key, 0), launches_per_flagship_scan=eigh_per_scan.get(key),
             max_abs_err=rec["max_abs_err"], rel_err=rec["rel_err"], bit_equal=rec["bit_equal"], ms=rec["ms"],
             device_ms=rec["device_ms"], plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
-            bound_by=rec["bound_by"], library_ms=rec["library_ms"]))
+            bound_by=rec["bound_by"], library_ms=rec["library_ms"], library_device_ms=rec["library_device_ms"],
+            chain_floor_ms=rec["chain_floor_ms"], unpadded_trace_found=rec["unpadded_trace_found"]))
     kernels = [k for k in kernels if k["launches"] > 0 or not k["name"].startswith("eigh")]
     missing = [f"{k['name']} {k['instance']}" for k in kernels if k["launches"] < 1]
     if full and missing:
         fail(f"kernel instances the main paths never launched: {missing}")
     if not full:
         kernels = [k for k in kernels if k["launches"] > 0]
+    paths["eigh_sym_random_spectrum"] = eigh_random
+    margins = [m for t in DEVICE_TRACE_LOG if t["margins_ms"] for m in t["margins_ms"]]
+    paths["device_traces"] = dict(count=len(DEVICE_TRACE_LOG),
+                                  retried=[t for t in DEVICE_TRACE_LOG if t["attempts"] > 1],
+                                  margins_ms=[min(margins), max(margins)] if margins else None)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "device_traces.json"), "w") as f:
+        json.dump(DEVICE_TRACE_LOG, f, indent=1)
     print(json.dumps({"paths": {**paths, "seconds": seconds}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -57,10 +57,12 @@ EIGH3_SWEEPS = 6
 
 _ARGS3 = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_void_p]
 _ARGS_SYM = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+_ARGS_CHAIN = [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p]
 # --fmad=false: no multiply-add contraction, the plain versions' IEEE operations
 _KERNEL = KernelLibrary("eigh.cu", "gcslam_eigh",
                         {"gcslam_eigh3_f32": _ARGS3, "gcslam_eigh3_f64": _ARGS3,
-                         "gcslam_eigh_sym_f32": _ARGS_SYM, "gcslam_eigh_sym_f64": _ARGS_SYM},
+                         "gcslam_eigh_sym_f32": _ARGS_SYM, "gcslam_eigh_sym_f64": _ARGS_SYM,
+                         "gcslam_eigh_sym_chain_f32": _ARGS_CHAIN, "gcslam_eigh_sym_chain_f64": _ARGS_CHAIN},
                         extra_flags=["--fmad=false"])
 EIGH3_COUNTER = LaunchCounter()
 EIGH_SYM_COUNTER = LaunchCounter()
@@ -199,6 +201,59 @@ def eigh_sym_reference(M: torch.Tensor, n_sweeps: int = EIGH_SYM_SWEEPS) -> Tupl
             Vp, Vq = V[..., :, P], V[..., :, Q]
             V = V.index_copy(-1, P, cc * Vp - sc * Vq).index_copy(-1, Q, sc * Vp + cc * Vq)
     return _ascending(torch.diagonal(A, dim1=-2, dim2=-1) * scale_safe[..., 0], V)
+
+
+def _next_entry(A, pi, qi, si, ci, s_i, pj, qj, sj, cj, s_j):
+    """Entry of the next round's A for a row on side si (0: p, 1: q) of pair
+    (pi, qi) and a column on side sj of pair (pj, qj), from this round's A
+    and (c, s): the row rotation, then the column rotation, as
+    csrc/eigh.cu's block_entry computes it."""
+    ui, vi = (s_i, ci) if si else (ci, -s_i)
+    x = ui * A[pi, pj] + vi * A[qi, pj]
+    y = ui * A[pi, qj] + vi * A[qi, qj]
+    uj, vj = (s_j, cj) if sj else (cj, -s_j)
+    return uj * x + vj * y
+
+
+def sym_chain_reference(block: torch.Tensor, n_rounds: int) -> torch.Tensor:
+    """The plain version of csrc/eigh.cu's eigh_sym_chain_kernel: n_rounds
+    dependent rounds of one rotation lane's work (the three entries of the
+    pair (0, 3) from the 4 x 4 `block` and the last (c, s), then the
+    rotation); returns the last (c, s)."""
+    c = torch.ones((), dtype=block.dtype, device=block.device)
+    s = torch.zeros((), dtype=block.dtype, device=block.device)
+    for _ in range(n_rounds):
+        app = _next_entry(block, 0, 1, 0, c, s, 0, 1, 0, c, s)
+        aqq = _next_entry(block, 2, 3, 1, c, s, 2, 3, 1, c, s)
+        apq = _next_entry(block, 0, 1, 0, c, s, 2, 3, 1, c, s)
+        c, s, _ = _rotation(app, aqq, apq)
+    return torch.stack([c, s])
+
+
+def sym_rounds(n: int) -> int:
+    """eigh_sym's Jacobi rounds a call at n x n: EIGH_SYM_SWEEPS sweeps of
+    n' - 1 rounds (n' = n rounded up to even)."""
+    return EIGH_SYM_SWEEPS * (n + (n & 1) - 1)
+
+
+def sym_chain(block: torch.Tensor, n_rounds: int) -> torch.Tensor:
+    """eigh_sym's latency floor: n_rounds rounds of the rotation lane's
+    dependent chain in one thread (csrc/eigh.cu eigh_sym_chain_kernel) on a
+    CUDA (4, 4) block, its plain version on a CPU one. A measurement probe
+    (chip_smoke.py phase 2), on no path of the step."""
+    if block.shape != (4, 4) or block.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"expected a float32 or float64 (4, 4) block, got {block.dtype} {tuple(block.shape)}")
+    if not block.is_cuda:
+        return sym_chain_reference(block, n_rounds)
+    lib = _KERNEL.lib()
+    fn = lib.gcslam_eigh_sym_chain_f64 if block.dtype == torch.float64 else lib.gcslam_eigh_sym_chain_f32
+    blk = block.contiguous()
+    out = torch.empty(2, dtype=block.dtype, device=block.device)
+    with torch.cuda.device(block.device):
+        err = fn(blk.data_ptr(), out.data_ptr(), n_rounds, torch.cuda.current_stream(block.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"eigh_sym_chain launch failed: cudaError_t {err}")
+    return out
 
 
 # --- the kernels --------------------------------------------------------------

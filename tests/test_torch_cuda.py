@@ -563,7 +563,8 @@ def test_eigh3_kernel_matches_plain(cuda, dtype, shape):
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("n,shape", [(6, ()), (6, (7,)), (22, (1,)), (22, (4,)), (5, (3,)), (32, (2,)), (1, (2,))])
+@pytest.mark.parametrize("n,shape", [(6, ()), (6, (7,)), (22, (1,)), (22, (4,)), (5, (3,)), (32, (2,)), (1, (2,)),
+                                     (22, (2,)), (22, (8,)), (22, (32,)), (6, (56,)), (31, (1,)), (2, (3,))])
 def test_eigh_sym_kernel_matches_plain(cuda, dtype, n, shape):
     """The kernel performs its plain version's operations in order (both
     built without contraction): equal to the bit; and close to
@@ -578,6 +579,65 @@ def test_eigh_sym_kernel_matches_plain(cuda, dtype, n, shape):
     lib = torch.linalg.eigvalsh(M)
     tol = {torch.float64: 1e-13, torch.float32: 1e-5}[dtype]
     assert torch.all((lam - lib).abs() <= tol * lib.abs().amax(-1, keepdim=True))
+
+
+def _clustered_22(seed: int, count: int) -> np.ndarray:
+    """The first `count` clustered 22 x 22 matrices that
+    tests/test_torch_eigh.py's _matrices draws from `seed` (two clusters of
+    11 eigenvalues, 1e-13 apart inside each, rotated at random), in numpy
+    alone: this file imports no JAX."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(count):
+        Q = np.linalg.qr(rng.normal(size=(22, 22)))[0]
+        lam = np.concatenate([np.full(11, 1.0), np.full(11, 1e-3)]) * (1.0 + 1e-13 * rng.normal(size=22))
+        M = (Q * lam) @ Q.T
+        out.append(0.5 * (M + M.T))
+    return np.stack(out)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_eigh_sym_kernel_on_the_slowest_clustered_matrices(cuda, dtype):
+    """The matrices that set EIGH_SYM_SWEEPS (test_sweeps_converge: seeds
+    0-2 and seed 26's sixth, the slowest found), alone and as one batch:
+    equal to the plain version to the bit, two launches equal."""
+    M = torch.as_tensor(np.concatenate([_clustered_22(s, 2) for s in range(3)] + [_clustered_22(26, 6)[5:6]]),
+                        dtype=dtype, device=cuda)
+    for batch in (M[-1], M):
+        lam, V = eigh.eigh_sym(batch)
+        lam2, V2 = eigh.eigh_sym(batch)
+        ref_lam, ref_V = eigh.eigh_sym_reference(batch)
+        torch.cuda.synchronize()
+        assert torch.equal(lam, ref_lam) and torch.equal(V, ref_V)
+        assert torch.equal(lam, lam2) and torch.equal(V, V2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n", [6, 22, 5])
+def test_eigh_sym_kernel_nan_gives_nan(cuda, dtype, n):
+    """A NaN entry gives NaN eigenvalues in every matrix it touches and
+    leaves the others of the batch as they are; the launch ends (no
+    convergence loop to hang in)."""
+    M = _sym_batch((3,), n, seed=n + 1, dtype=dtype).to(cuda)
+    M[1, 0, 1] = float("nan")
+    lam, V = eigh.eigh_sym(M)
+    torch.cuda.synchronize()
+    assert torch.isnan(lam[1]).all()
+    ref_lam, ref_V = eigh.eigh_sym_reference(M[::2])
+    assert torch.equal(lam[::2], ref_lam) and torch.equal(V[::2], ref_V)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_sym_chain_kernel_matches_plain(cuda, dtype):
+    """eigh_sym's latency probe (one thread, the rotation lane's chain)
+    equals its plain version on the card to the bit, at the rounds of a
+    6 x 6 and a 22 x 22 call."""
+    blk = _sym_batch((), 4, seed=4, dtype=dtype).to(cuda)
+    for n in (6, 22):
+        got = eigh.sym_chain(blk, eigh.sym_rounds(n))
+        want = eigh.sym_chain_reference(blk, eigh.sym_rounds(n))
+        torch.cuda.synchronize()
+        assert torch.equal(got, want) and torch.isfinite(got).all()
 
 
 def test_eigh_vmap_is_one_launch_and_refuses_what_it_does_not_take(cuda):

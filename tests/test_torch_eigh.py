@@ -118,10 +118,119 @@ def test_sweeps_converge():
 
 def test_kernel_sweeps_are_the_plain_versions():
     """The kernel's compiled-in sweep count (csrc/eigh.cu kSymSweeps) is
-    EIGH_SYM_SWEEPS, the plain version's."""
+    EIGH_SYM_SWEEPS, the plain version's, and its pair tables for the
+    step's n = 6 and 22 (kRounds6, kRounds22) are round_robin(n), pair for
+    pair and round for round."""
     src = (Path(E.__file__).resolve().parents[1] / "csrc" / "eigh.cu").read_text()
     found = re.findall(r"constexpr int kSymSweeps = (\d+);", src)
     assert found == [str(E.EIGH_SYM_SWEEPS)]
+    tables = re.findall(r"unsigned char kRounds(\d+)\[(\d+)\]\[(\d+)\]\[2\] = \{(.*?)\};", src, re.S)
+    assert [int(t[0]) for t in tables] == [6, 22]
+    for n, rounds, pairs, body in tables:
+        table = np.array([int(x) for x in re.findall(r"\d+", body)]).reshape(int(rounds), int(pairs), 2)
+        want = np.stack([np.stack([P, Q], -1) for P, Q in E.round_robin(int(n))])
+        assert np.array_equal(table, want)
+
+
+def _slots(P, Q, n):
+    """(pair, side) of each index in a round: side 0 for p, 1 for q."""
+    k, side = np.empty(n, np.int64), np.empty(n, np.int64)
+    k[P], k[Q] = np.arange(len(P)), np.arange(len(Q))
+    side[P], side[Q] = 0, 1
+    return k, side
+
+
+def _model_entry(A, c, s, rot, P, Q, slots, i, j):
+    """Entries (i[m], j[m]) of the next round's A from this round's A and
+    (c, s) (csrc/eigh.cu block_entry): row i of J^T A at the columns of j's
+    pair, with (u, v) = (c, -s) or (s, c) by i's side, then the column
+    rotation of j's pair by j's side; the rotated pair's own off-diagonal
+    is 0."""
+    k, side = slots
+    ki, si, kj, sj = (torch.as_tensor(x) for x in (k[i], side[i], k[j], side[j]))
+    pi, qi, pj, qj = P[ki], Q[ki], P[kj], Q[kj]
+    ui = torch.where(si == 1, s[..., ki], c[..., ki])
+    vi = torch.where(si == 1, c[..., ki], -s[..., ki])
+    x = ui * A[..., pi, pj] + vi * A[..., qi, pj]
+    y = ui * A[..., pi, qj] + vi * A[..., qi, qj]
+    uj = torch.where(sj == 1, s[..., kj], c[..., kj])
+    vj = torch.where(sj == 1, c[..., kj], -s[..., kj])
+    zero = (ki == kj) & (si != sj) & rot[..., ki]
+    return torch.where(zero, 0.0, uj * x + vj * y)
+
+
+def _model_blocks(A, c, s, rot, P, Q):
+    """The next round's A in 2 x 2 blocks (csrc/eigh.cu's block warps): the
+    block of rows {P[k], Q[k]} and columns {P[l], Q[l]} from the same block
+    and the (c, s) of k and l, rows first, then columns, written into a new
+    buffer."""
+    Pr, Qr, Pc, Qc = P[:, None], Q[:, None], P[None, :], Q[None, :]
+    a, b, cq, d = A[..., Pr, Pc], A[..., Pr, Qc], A[..., Qr, Pc], A[..., Qr, Qc]
+    ck, sk, cl, sl = c[..., :, None], s[..., :, None], c[..., None, :], s[..., None, :]
+    a1, c1, b1, d1 = ck * a - sk * cq, sk * a + ck * cq, ck * b - sk * d, sk * b + ck * d
+    a2, b2, c2, d2 = cl * a1 - sl * b1, sl * a1 + cl * b1, cl * c1 - sl * d1, sl * c1 + cl * d1
+    own = torch.diag_embed(rot)
+    out = torch.empty_like(A)
+    out[..., Pr, Pc], out[..., Qr, Qc] = a2, d2
+    out[..., Pr, Qc], out[..., Qr, Pc] = torch.where(own, 0.0, b2), torch.where(own, 0.0, c2)
+    return out
+
+
+def _fused_block_jacobi(M):
+    """csrc/eigh.cu's round in plain torch, for even n: two buffers of A and
+    of (c, s); in round g the block update writes A_{g+1} from A_g and
+    (c, s)_g, the next round's rotations come from three entries of A_{g+1}
+    recomputed from A_g and (c, s)_g (not read from A_{g+1}), and V takes
+    (c, s)_g."""
+    n = M.shape[-1]
+    rounds = [tuple(torch.as_tensor(x) for x in pq) for pq in E.round_robin(n)]
+    slots = [_slots(P.numpy(), Q.numpy(), n) for P, Q in rounds]
+    A, scale_safe = E._scaled(M)
+    V = torch.eye(n, dtype=M.dtype).expand(M.shape)
+    P, Q = rounds[0]
+    c, s, small = E._rotation(A[..., P, P], A[..., Q, Q], A[..., P, Q])
+    rot = ~small
+    total = E.EIGH_SYM_SWEEPS * len(rounds)
+    for g in range(total):
+        r = g % len(rounds)
+        P, Q = rounds[r]
+        if g + 1 < total:
+            Pn, Qn = rounds[(r + 1) % len(rounds)]
+            entry = lambda i, j: _model_entry(A, c, s, rot, P, Q, slots[r], i.numpy(), j.numpy())
+            c_n, s_n, small_n = E._rotation(entry(Pn, Pn), entry(Qn, Qn), entry(Pn, Qn))
+        A = _model_blocks(A, c, s, rot, P, Q)
+        cc, sc = c[..., None, :], s[..., None, :]
+        Vp, Vq = V[..., :, P], V[..., :, Q]
+        V = V.index_copy(-1, P, cc * Vp - sc * Vq).index_copy(-1, Q, sc * Vp + cc * Vq)
+        if g + 1 < total:
+            c, s, rot = c_n, s_n, ~small_n
+    return E._ascending(torch.diagonal(A, dim1=-2, dim2=-1) * scale_safe[..., 0], V)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n,batch,kind", [(6, (3,), "indefinite"), (22, (2,), "cond_1e12"), (22, (1,), "clustered")])
+def test_fused_block_round_is_the_plain_version(n, batch, kind, dtype):
+    """The kernel's design, modelled in plain torch (_fused_block_jacobi),
+    performs the plain version's operations: equal to the bit. That holds
+    because each entry of a 2 x 2 block sees the row rotation and then the
+    column rotation of the plain version's two passes, c x - s y is
+    c x + (-s) y exactly, and the recomputed entries repeat the block
+    update's operations."""
+    M = torch.as_tensor(_matrices(40 + n, n, batch, kind), dtype=dtype)
+    got = _fused_block_jacobi(M)
+    want = E.eigh_sym_reference(M)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_sym_chain_is_its_plain_version_and_the_rotation():
+    """eigh_sym's latency probe on a CPU block is its plain version, whose
+    first round is the rotation of the block's (0, 0), (3, 3), (0, 3)
+    entries (the last (c, s) starts as the identity)."""
+    blk = torch.as_tensor(_matrices(11, 4, (), "indefinite"))
+    assert torch.equal(E.sym_chain(blk, E.sym_rounds(6)), E.sym_chain_reference(blk, E.sym_rounds(6)))
+    c, s, _ = E._rotation(blk[0, 0], blk[3, 3], blk[0, 3])
+    assert torch.equal(E.sym_chain(blk, 1), torch.stack([c, s]))
+    assert E.sym_rounds(22) == 315 and E.sym_rounds(6) == 75 and E.sym_rounds(5) == 75
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
