@@ -20,15 +20,23 @@ Phases, in order; any failure exits non-zero before the result line:
      bit-equal, and the (pixel, splat) pairs it composites); times both by
      CUDA events over back-to-back calls and by the kernel's own device
      time in torch.profiler; prints ptxas registers, spills and shared
-     memory; eigh3 and eigh_sym on the inputs of one eager flagship scan
-     (scan 3), at each instance (batch shape) it launches, in f64 and in
-     f32, against their plain versions (eigenvalues and V diag(lambda) V^T
-     within 1e-14 of max|lambda| in f64, 1e-6 in f32; whether bit-equal),
-     two launches bit-equal, beside torch.linalg.eigh's time on the same
-     batch (events, which include its host sync, and device, the sum of its
-     kernels) and, for eigh_sym, the chain floor (one thread running the
-     rotation lane's dependent chain for the call's rounds,
-     eigh_sym_chain_kernel, held to its plain version); every kernel's
+     memory; eigh3, psd3 and eigh_sym on the inputs of one eager flagship
+     scan (scan 3), at each instance (batch shape) it launches, in f64 and
+     in f32, against their plain versions (eigenvalues and V diag(lambda)
+     V^T within 1e-14 of max|lambda| in f64, 1e-6 in f32; whether
+     bit-equal; psd3: M_psd, eig_min and eig_max within the same of
+     max|lambda|, the two deltas of |M|, cond carried through the quotient,
+     near_null_count equal, eig_min / eig_max bit-equal to the floored
+     extremes of eigh3's eigenvalues), two launches bit-equal, beside
+     torch.linalg.eigh's time on the same batch (events, which include its
+     host sync, and device, the sum of its kernels; for psd3 the library
+     reference, no single call computing the projection, beside the plain
+     epilogue's 15 kernels), the chain floor (one thread running the
+     dependent chain of the call's rotations: eigh3_chain_kernel on the
+     batch's first matrix, eigh_sym_chain_kernel for the rotation lane's
+     rounds, each held to its plain version) and the empty kernel (the
+     fixed cost of a launch); a 3 x 3 domain_projection_psd runs psd3's
+     kernel and no other (a trace of 20 calls); every kernel's
      device time comes from a torch.profiler trace whose window pads the
      calls with idle host time, and a kernel the trace does not hold fails
      the phase; eigh_sym at (1, 22, 22) and (4, 22, 22) f64 on random
@@ -41,7 +49,9 @@ Phases, in order; any failure exits non-zero before the result line:
      at PipelineConfig() defaults; finite poses, ATE gate of bench.py
      (<= 0.30 m, <= 4.0 deg, initial-pose alignment), and exactly
      map_icp_iters x n_scans Sinkhorn launches (on the card every runner
-     replays the compiled step: launches are counted at each replay);
+     replays the compiled step: launches are counted at each replay); the
+     psd3, eigh3 and eigh_sym launches a scan, and a profile of 3 replayed
+     scans (device kernels and busy time a scan);
   4. determinism: two 10-scan flagship runs give bit-equal poses;
   5. camera path: generate(with_camera=True) (the native C++ corner stage,
      as the JAX generator) and run_bag at
@@ -167,13 +177,15 @@ Phases, in order; any failure exits non-zero before the result line:
      torch.cuda.set_sync_debug_mode("error") (no implicit host sync); the
      50-scan flagship through run_bag's graph replays against the eager
      step (poses and tape bit-equal), the ATE gate, exactly 100 Sinkhorn
-     launches counted over the replays, the 1 / 0 / 0 ledger; scan 5 on
-     the plain routes (the Sinkhorn loop, the Jacobi chains) against the
-     kernels within tests/test_torch_slice.py's tolerances; eager and
-     graph ms/scan over 10 scans in 3 interleaved pairs; a torch.profiler
-     record of 3 replays (the Sinkhorn and eigh launches the counters
-     credit over them equal to the kernels in its trace, and each kernel's
-     device ms a scan) and of 3 eager steps. With --phases 1,2,18 it runs
+     launches counted over the replays, the 1 / 0 / 0 ledger, the psd3,
+     eigh3 and eigh_sym launches a replayed scan; scan 5 on the plain
+     routes (the Sinkhorn loop, the Jacobi chains, the projection's torch
+     epilogue) against the kernels within tests/test_torch_slice.py's
+     tolerances; eager and graph ms/scan over 10 scans in 3 interleaved
+     pairs; a torch.profiler record of 3 replays (the Sinkhorn, eigh3,
+     psd3 and eigh_sym launches the counters credit over them equal to the
+     kernels in its trace, and each kernel's device ms a scan) and of 3
+     eager steps. With --phases 1,2,18 it runs
      alone after phases 1-2.
 Before the last line it prints {"paths": ...} and {"kernels": [...]}, one
 kernel record per instance the main paths launch (dtype and shape), and
@@ -186,6 +198,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -365,14 +378,26 @@ EIGH_RTOL = {"float64": 1e-14, "float32": 1e-6}
 # p, q of A and columns p, q of V; then 35 for the symmetrization (6), the
 # max|A| (11), the scaling (6), the rescaling (3) and the ranks (9)
 EIGH3_FLOPS = 18 * (26 + 3 * 18) + 35
-EIGH_REPLACES = {"eigh3": "gcslam_tpu/ops/linalg.py:160", "eigh_sym": "gcslam_tpu/ops/linalg.py:45"}
+# psd3's FLOPs a matrix beyond eigh3's: M_sym (18), sym_delta (9 subtractions,
+# 9 squares, 8 additions, a square root: 27), the floor (3), V diag(vals) (9),
+# M_psd (9 entries x 5: 45), projection_delta (27), the extremes (4), cond
+# (1), the count (3)
+PSD3_EPILOGUE_FLOPS = 18 + 27 + 3 + 9 + 45 + 27 + 4 + 1 + 3
+EIGH_REPLACES = {"eigh3": "gcslam_tpu/ops/linalg.py:160", "psd3": "gcslam_tpu/ops/linalg.py:33",
+                 "eigh_sym": "gcslam_tpu/ops/linalg.py:45"}
+# The eigen family: each kernel's launch counter in ops/eigh and the
+# pattern of its name in a torch.profiler trace (psd3 is eigh3_kernel<T,
+# kPsd = true>)
+EIGEN_COUNTERS = {"eigh3": "EIGH3_COUNTER", "psd3": "PSD3_COUNTER", "eigh_sym": "EIGH_SYM_COUNTER"}
+EIGEN_TRACE = {"eigh3": r"eigh3_kernel<\w+, (false|\(bool\)0)>", "psd3": r"eigh3_kernel<\w+, (true|\(bool\)1)>",
+               "eigh_sym": r"eigh_sym_kernel"}
 EIGH_RECORD_AFTER = 3  # phase 2 records the eigh inputs of flagship scan 3, after scans 0-2
 # device_trace: idle host time inside a profiled window on either side of
 # the calls, and the traces device_ms takes before it fails
 DEVICE_TRACE_PAD_S = 0.02
 DEVICE_TRACE_TRIES = 3
 DEVICE_TRACE_LOG = []  # attempts and margins of every device_ms of this run
-CHAIN_FLOOR_MS = {}  # eigh_sym's chain floor by (dtype, n)
+CHAIN_FLOOR_MS = {}  # chain floors: eigh_sym's by (dtype, n), eigh3's by (dtype, "eigh3", shape); "empty"
 CHAIN_BLOCK_SEED = 0  # the chain floor's 4 x 4 block
 EIGH_RANDOM_SEED = 12  # phase 2's random-spectrum eigh_sym inputs
 # phase 18, the compiled step
@@ -451,12 +476,15 @@ def ptxas_summary(log: str):
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             t = re.search(r"sinkhorn_kernelI([fd])Li(\d+)E", m.group(1))
-            e = re.search(r"(eigh3_kernel|eigh_sym_kernel|eigh_sym_chain_kernel)I([fd])(?:Li(\d+)E)?E", m.group(1))
+            e = re.search(r"(eigh3_kernel|eigh3_chain_kernel|eigh_sym_kernel|eigh_sym_chain_kernel)I([fd])"
+                          r"(?:L([ib])(\d+)E)?E", m.group(1))
             name = (f"sinkhorn_kernel<{'float' if t.group(1) == 'f' else 'double'}, KMAX={t.group(2)}>" if t
                     else (f"{e.group(1)}<{'float' if e.group(2) == 'f' else 'double'}"
-                          + ("" if e.group(3) is None else f", n={e.group(3) if e.group(3) != '0' else 'any'}")
+                          + ("" if e.group(3) is None else f", psd={e.group(4) == '1'}" if e.group(3) == "b"
+                             else f", n={e.group(4) if e.group(4) != '0' else 'any'}")
                           + ">") if e
-                    else "raster_kernel" if "raster_kernel" in m.group(1) else m.group(1))
+                    else "raster_kernel" if "raster_kernel" in m.group(1)
+                    else "empty_kernel" if "empty_kernel" in m.group(1) else m.group(1))
         elif "spill stores" in line:
             frame, spill = (x.strip() for x in line.strip().split(",")[:2])
         elif "Used" in line and "registers" in line and name:
@@ -504,18 +532,20 @@ def device_trace(fn, n: int, pad_s: float = DEVICE_TRACE_PAD_S):
 
 def device_ms(fn, kernel: str, n: int = 20, label: str = None):
     """The kernel's own device time per launch (ms): the mean over its
-    launches in device_trace of n calls, traced again up to
+    launches (the trace's kernels whose name matches the pattern `kernel`)
+    in device_trace of n calls, traced again up to
     DEVICE_TRACE_TRIES times while the trace holds none of them; fails
     with the instance's label if none does."""
     for attempt in range(DEVICE_TRACE_TRIES):
         events, margins = device_trace(fn, n)
-        mine = [e for e in events if kernel in e.name()]
+        mine = [e for e in events if re.search(kernel, e.name())]
         if mine:
             DEVICE_TRACE_LOG.append(dict(label=label or kernel, attempts=attempt + 1, events=len(mine),
-                                         margins_ms=margins))
+                                         margins_ms=margins, name=mine[0].name()))
             return sum(e.duration_ns() for e in mine) / len(mine) / 1e6
         print(f"device trace of {label or kernel}: {len(events)} device events, none of {kernel} "
-              f"(attempt {attempt + 1} of {DEVICE_TRACE_TRIES})", flush=True)
+              f"(attempt {attempt + 1} of {DEVICE_TRACE_TRIES}); names: {sorted({e.name() for e in events})[:8]}",
+              flush=True)
     fail(f"{label or kernel}: no {kernel} in {DEVICE_TRACE_TRIES} device traces of {n} calls")
 
 
@@ -650,23 +680,29 @@ def eigh_sym_flops(n: int) -> int:
     return eigh.EIGH_SYM_SWEEPS * (players - 1) * (players // 2) * (20 + 18 * n) + 3 * n * n
 
 
-def eigh_key(counter, M) -> tuple:
-    """(kernel, dtype, batch shape (B, n, n)) of an eigh launch on M."""
+def eigen_counters() -> dict:
+    """The eigen family's launch counters by kernel name."""
     from gcslam_torch.ops import eigh
 
+    return {name: getattr(eigh, attr) for name, attr in EIGEN_COUNTERS.items()}
+
+
+def eigh_key(counter, M) -> tuple:
+    """(kernel, dtype, batch shape (B, n, n)) of an eigen-family launch on M."""
     n = M.shape[-1]
-    return ("eigh3" if counter is eigh.EIGH3_COUNTER else "eigh_sym", str(M.dtype).replace("torch.", ""),
-            (int(M.numel() // (n * n)), n, n))
+    name = next(k for k, c in eigen_counters().items() if c is counter)
+    return (name, str(M.dtype).replace("torch.", ""), (int(M.numel() // (n * n)), n, n))
 
 
 class EighInputs:
-    """While installed, the first input of every eigh kernel instance
-    (eigh_key) launched outside a CUDA graph capture, cloned, and the
-    launches of each; an instance launched under a capture, where the
-    inputs hold no values yet, goes to `captured`."""
+    """While installed, the first input of every eigen-family kernel
+    instance (eigh_key) launched outside a CUDA graph capture, cloned (and
+    for psd3 its eps_psd), and the launches of each; an instance launched
+    under a capture, where the inputs hold no values yet, goes to
+    `captured`."""
 
     def __init__(self):
-        self.inputs, self.launches, self.captured = {}, collections.Counter(), set()
+        self.inputs, self.launches, self.captured, self.eps = {}, collections.Counter(), set(), {}
         self._launch = None
 
     def install(self) -> "EighInputs":
@@ -677,14 +713,17 @@ class EighInputs:
             return self
         self._launch = launch = eigh._launch
 
-        def recording(fn, counter, M, *args):
+        def recording(fn, counter, M, *args, **kw):
             key = eigh_key(counter, M)
             if torch.cuda.is_current_stream_capturing():
                 self.captured.add(key)
             else:
-                self.inputs.setdefault(key, M.reshape(key[2]).clone())
+                if key not in self.inputs:
+                    self.inputs[key] = M.reshape(key[2]).clone()
+                    if key[0] == "psd3":
+                        self.eps[key] = float(args[0])
                 self.launches[key] += 1
-            return launch(fn, counter, M, *args)
+            return launch(fn, counter, M, *args, **kw)
 
         eigh._launch = recording
         return self
@@ -702,18 +741,23 @@ class EighInputs:
         self.uninstall()
 
     def host(self) -> dict:
-        """The inputs as numpy arrays keyed "kernel|dtype|BxNxN" (to cross a
-        process boundary)."""
-        return {f"{k[0]}|{k[1]}|{'x'.join(map(str, k[2]))}": v.cpu().numpy() for k, v in self.inputs.items()}
+        """The inputs as numpy arrays keyed "kernel|dtype|BxNxN" (and
+        "|eps" for psd3's eps_psd), to cross a process boundary."""
+        out = {f"{k[0]}|{k[1]}|{'x'.join(map(str, k[2]))}": v.cpu().numpy() for k, v in self.inputs.items()}
+        out.update({f"{k[0]}|{k[1]}|{'x'.join(map(str, k[2]))}|eps": np.array(e) for k, e in self.eps.items()})
+        return out
 
     def merge(self, host: dict, device) -> None:
         """Add the inputs of another process (host()) that this one lacks."""
         import torch
 
         for name, arr in host.items():
-            kernel, dt, shape = name.split("|")
-            self.inputs.setdefault((kernel, dt, tuple(int(x) for x in shape.split("x"))),
-                                   torch.as_tensor(arr, device=device))
+            kernel, dt, shape = name.split("|")[:3]
+            key = (kernel, dt, tuple(int(x) for x in shape.split("x")))
+            if name.endswith("|eps"):
+                self.eps.setdefault(key, float(arr))
+            else:
+                self.inputs.setdefault(key, torch.as_tensor(arr, device=device))
 
 
 # The eigh launches of the main paths by instance (eigh_key), each path's
@@ -727,18 +771,13 @@ EIGH_SEEN = EighInputs()
 
 
 def eigh_counts() -> dict:
-    """The eigh counters' launches by instance (eigh_key)."""
-    from gcslam_torch.ops import eigh
-
-    return {(name,) + k: v for name, counter in (("eigh3", eigh.EIGH3_COUNTER), ("eigh_sym", eigh.EIGH_SYM_COUNTER))
-            for k, v in counter.by_instance.items()}
+    """The eigen counters' launches by instance (eigh_key)."""
+    return {(name,) + k: v for name, counter in eigen_counters().items() for k, v in counter.by_instance.items()}
 
 
 def eigh_reset() -> None:
-    from gcslam_torch.ops import eigh
-
-    eigh.EIGH3_COUNTER.reset()
-    eigh.EIGH_SYM_COUNTER.reset()
+    for counter in eigen_counters().values():
+        counter.reset()
 
 
 def eigh_credit(label: str, counts=None) -> None:
@@ -758,9 +797,9 @@ def eigh_counted(label: str):
 
 
 def eigh_inputs(device):
-    """The inputs of the eigh kernels' launches in one eager flagship scan
-    (scan EIGH_RECORD_AFTER), by instance (eigh_key): the first input of
-    each, and its launches in the scan."""
+    """The inputs of the eigen kernels' launches in one eager flagship scan
+    (scan EIGH_RECORD_AFTER), by instance (eigh_key): an EighInputs with the
+    first input of each (psd3's eps_psd too) and its launches in the scan."""
     import torch
     from gcslam_torch.frontend.synthetic import SyntheticConfig, generate
     from gcslam_torch.models.config import PipelineConfig
@@ -774,7 +813,7 @@ def eigh_inputs(device):
             state, _ = scan_step(state, b, cfg)
         with EighInputs() as rec:
             scan_step(state, run.batches[EIGH_RECORD_AFTER], cfg)
-    return rec.inputs, rec.launches
+    return rec
 
 
 def eigh_errors(lam, V, lam_p, V_p):
@@ -816,6 +855,39 @@ def chain_floor_ms(M) -> float:
     return CHAIN_FLOOR_MS[key]
 
 
+def eigh3_floor_ms(M, name: str = "eigh3") -> float:
+    """eigh3's latency floor on the card for the batch M of instance `name`
+    (ms): one thread runs the dependent chain of its 18 rotations
+    (eigh3_chain_kernel) on M's first matrix, whose rotations fall below
+    the `small` guard where the path's do. The chain's diagonal must equal
+    the plain version's."""
+    import torch
+    from gcslam_torch.ops import eigh
+
+    M0 = M.reshape(-1, 3, 3)[0].contiguous()
+    key = (str(M.dtype).replace("torch.", ""), name, tuple(M.shape))
+    if key not in CHAIN_FLOOR_MS:
+        got, want = eigh.eigh3_chain(M0), eigh.eigh3_chain_reference(M0)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"eigh3 chain {key}: {got.tolist()} against the plain version's {want.tolist()}")
+        CHAIN_FLOOR_MS[key] = device_ms(lambda: eigh.eigh3_chain(M0), "eigh3_chain_kernel",
+                                        label=f"eigh3 chain {key[0]} {key[2]}")
+    return CHAIN_FLOOR_MS[key]
+
+
+def empty_kernel_ms(device) -> float:
+    """The device time of csrc/eigh.cu's empty kernel (one thread that does
+    nothing), in the same padded trace as the kernels: the fixed cost of a
+    launch of the library (ms), measured once a run."""
+    from gcslam_torch.ops import eigh
+
+    if "empty" not in CHAIN_FLOOR_MS:
+        CHAIN_FLOOR_MS["empty"] = device_ms(lambda: eigh.empty_launch(device), "empty_kernel",
+                                            label="empty kernel")
+    return CHAIN_FLOOR_MS["empty"]
+
+
 def check_eigh(name: str, M, inputs: str = ""):
     """eigh3 or eigh_sym on the batch M against its plain version: finite,
     two launches bit-equal, within EIGH_RTOL; times the kernel (events and
@@ -829,6 +901,7 @@ def check_eigh(name: str, M, inputs: str = ""):
 
     kernel = eigh.eigh3 if name == "eigh3" else eigh.eigh_sym
     plain = eigh.eigh3_reference if name == "eigh3" else eigh.eigh_sym_reference
+    pattern = EIGEN_TRACE[name]
     dt, shape = str(M.dtype).replace("torch.", ""), tuple(M.shape)
     label = f"{name} {dt} {shape}" + (f" ({inputs})" if inputs else "")
     lam, V = kernel(M)
@@ -845,13 +918,14 @@ def check_eigh(name: str, M, inputs: str = ""):
         fail(f"{label}: kernel and plain version apart by {err_lam:.3e} (eigenvalues), "
              f"{err_rec:.3e} (reconstruction) of max|lambda|, tolerance {EIGH_RTOL[dt]}")
     ms = time_call(lambda: kernel(M))
-    dev_ms = device_ms(lambda: kernel(M), f"{name}_kernel", label=label)
+    dev_ms = device_ms(lambda: kernel(M), pattern, label=label)
     unpadded, _ = device_trace(lambda: kernel(M), 20, pad_s=0.0)
-    unpadded_found = sum(1 for e in unpadded if f"{name}_kernel" in e.name())
+    unpadded_found = sum(1 for e in unpadded if re.search(pattern, e.name()))
     plain_ms = time_call(lambda: plain(M), n=2 if name == "eigh_sym" else 5)
     library_ms = time_call(lambda: torch.linalg.eigh(M), n=10)
     library_dev_ms = library_device_ms(lambda: torch.linalg.eigh(M), 10, f"torch.linalg.eigh {dt} {shape}")
-    floor_ms = chain_floor_ms(M) if name == "eigh_sym" else None
+    floor_ms = chain_floor_ms(M) if name == "eigh_sym" else eigh3_floor_ms(M)
+    empty_ms = empty_kernel_ms(M.device)
     B, n = shape[0], shape[-1]
     flops = B * (EIGH3_FLOPS if name == "eigh3" else eigh_sym_flops(n))
     bound_ms, bound_by = bound(M.element_size() * B * (2 * n * n + n), flops,
@@ -859,31 +933,160 @@ def check_eigh(name: str, M, inputs: str = ""):
     print(f"{label}: max |d lambda| {err_lam:.3e}, |d V L V^T| {err_rec:.3e} of max|lambda| "
           f"({'bit-equal' if exact else 'not bit-equal'} to the plain version); kernel {ms * 1e3:.1f} "
           f"us/call (events), device {fmt_us(dev_ms)}"
-          + ("" if floor_ms is None else f", chain floor {fmt_us(floor_ms)}")
+          + f", chain floor {fmt_us(floor_ms)}, empty kernel {fmt_us(empty_ms)}"
           + f", plain {plain_ms * 1e3:.1f} us/call, torch.linalg.eigh {library_ms * 1e3:.1f} us/call (events, "
           f"with its sync) / {fmt_us(library_dev_ms)} (device), bound {bound_ms * 1e3:.4f} us ({bound_by}); "
           f"an unpadded trace held {unpadded_found} of 20 launches")
     return dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=library_ms, library_device_ms=library_dev_ms,
-                chain_floor_ms=floor_ms, max_abs_err=float((lam - lam_p).abs().max()), rel_err=max(err_lam, err_rec),
+                chain_floor_ms=floor_ms, empty_kernel_ms=empty_ms, max_abs_err=float((lam - lam_p).abs().max()), rel_err=max(err_lam, err_rec),
                 bit_equal=exact, bound_ms=bound_ms, bound_by=bound_by, unpadded_trace_found=unpadded_found)
 
 
-def phase_eigh(device):
-    """eigh3 and eigh_sym against their plain versions on the inputs of one
-    flagship scan, at each of its instances, in f64 and f32; returns the
-    records keyed by (kernel, dtype, batch shape) and the launches a scan of
-    each recorded instance."""
+def psd3_errors(got, want, lam, M):
+    """psd3's output (M_psd, cert) against its plain version's: max over the
+    batch of |d M_psd| and |d eig_min|, |d eig_max| over the item's
+    max|lambda| (lam: the eigenvalues of sym(M)), of |d sym_delta| and
+    |d projection_delta| over |M|, and of |d cond| over the bound carried
+    through the quotient (cond max|lambda| (1 / eig_max + 1 / eig_min));
+    and the items whose near_null_count differs."""
     import torch
 
-    inputs, per_scan = eigh_inputs(device)
-    print("eigh instances of flagship scan " + str(EIGH_RECORD_AFTER) + ": "
-          + ", ".join(f"{k[0]} {k[1]} {k[2]} x{v}" for k, v in sorted(per_scan.items())))
+    (P, c), (P_p, c_p) = got, want
+    tiny = torch.finfo(M.dtype).tiny
+    scale = lam.abs().amax(-1).clamp(min=tiny)
+    norm = torch.linalg.matrix_norm(M).clamp(min=tiny)
+    cond_scale = c_p[..., 4].abs() * scale * (1.0 / c_p[..., 3] + 1.0 / c_p[..., 2])
+
+    def rel(d, s):
+        return float((d / s).max()) if d.numel() else 0.0
+
+    return dict(M_psd=rel((P - P_p).abs().amax((-2, -1)), scale),
+                deltas=rel((c[..., :2] - c_p[..., :2]).abs().amax(-1), norm),
+                extremes=rel((c[..., 2:4] - c_p[..., 2:4]).abs().amax(-1), scale),
+                cond=rel((c[..., 4] - c_p[..., 4]).abs(), cond_scale.clamp(min=tiny)),
+                near_null_differ=int((c[..., 5] != c_p[..., 5]).sum()))
+
+
+def check_psd3(M, eps, inputs: str = ""):
+    """psd3 (the fused 3 x 3 PSD projection) on the batch M against its
+    plain version (psd_parts through eigh3_reference): finite, two launches
+    bit-equal; M_psd, eig_min and eig_max within EIGH_RTOL of the item's
+    max|lambda|, the two deltas within EIGH_RTOL of |M| (the kernel's sums
+    replace cuBLAS's bmm and torch's reductions), cond within the same
+    carried through the quotient, near_null_count equal; its eig_min /
+    eig_max bit-equal to the floored extremes of eigh3's eigenvalues of
+    sym(M); times the kernel
+    (events and device), the plain version, the plain epilogue's 15 kernels
+    alone (device), eigh3 on sym(M) (device), the chain floor, the empty
+    kernel and torch.linalg.eigh of sym(M) (the library reference: no
+    single PyTorch call computes the projection); returns the record."""
+    import torch
+    from gcslam_torch.ops import eigh, linalg
+    from gcslam_torch.utils import cuda_profile
+
+    dt, shape = str(M.dtype).replace("torch.", ""), tuple(M.shape)
+    label = f"psd3 {dt} {shape}" + (f" ({inputs})" if inputs else "")
+    got = eigh.psd3(M, eps)
+    got2 = eigh.psd3(M, eps)
+    want = eigh.psd3_reference(M, eps)
+    M_sym = linalg.sym(M)
+    lam, V = eigh.eigh3(M_sym)
+    vals = torch.clamp(lam, min=eps)
+    torch.cuda.synchronize()
+    if not (torch.isfinite(got[0]).all() and torch.isfinite(got[1]).all()):
+        fail(f"{label}: non-finite output")
+    if not all(torch.equal(a, b) for a, b in zip(got, got2)):
+        fail(f"{label}: two launches differ")
+    if not (torch.equal(got[1][..., 2], vals.amin(-1)) and torch.equal(got[1][..., 3], vals.amax(-1))):
+        fail(f"{label}: eig_min / eig_max not the floored extremes of eigh3's eigenvalues")
+    err = psd3_errors(got, want, lam, M)
+    tol = EIGH_RTOL[dt]
+    if max(err["M_psd"], err["deltas"], err["extremes"], err["cond"]) > tol or err["near_null_differ"]:
+        fail(f"{label}: kernel and plain version apart: {err} (tolerance {tol})")
+    exact = all(torch.equal(a, b) for a, b in zip(got, want))
+    pattern = EIGEN_TRACE["psd3"]
+    ms = time_call(lambda: eigh.psd3(M, eps))
+    dev_ms = device_ms(lambda: eigh.psd3(M, eps), pattern, label=label)
+    traced_name = DEVICE_TRACE_LOG[-1]["name"]
+    eigh3_dev_ms = device_ms(lambda: eigh.eigh3(M_sym), EIGEN_TRACE["eigh3"], label=f"eigh3 {dt} {shape} (sym(M))")
+    epilogue = lambda: eigh.psd_parts(M, eps, lambda _: (lam, V))  # noqa: E731
+    for _ in range(DEVICE_TRACE_TRIES):  # a blank session holds no kernel: trace again
+        epi_events, _ = device_trace(epilogue, 1)
+        epi_kernels = sum(1 for e in epi_events if not e.name().startswith(cuda_profile.NOT_KERNELS))
+        if epi_kernels:
+            break
+    epi_dev_ms = library_device_ms(epilogue, 10, f"psd3 plain epilogue {dt} {shape}")
+    plain_ms = time_call(lambda: eigh.psd3_reference(M, eps), n=5)
+    library_ms = time_call(lambda: torch.linalg.eigh(M_sym), n=10)
+    library_dev_ms = library_device_ms(lambda: torch.linalg.eigh(M_sym), 10, f"torch.linalg.eigh {dt} {shape}")
+    floor_ms = eigh3_floor_ms(M_sym, "psd3")
+    empty_ms = empty_kernel_ms(M.device)
+    B = shape[0]
+    bound_ms, bound_by = bound(M.element_size() * B * (9 + 9 + 6), B * (EIGH3_FLOPS + PSD3_EPILOGUE_FLOPS),
+                               PEAK_F64_PER_S if M.dtype == torch.float64 else PEAK_F32_PER_S)
+    print(f"{label}: |d M_psd| {err['M_psd']:.3e}, |d eig_min|, |d eig_max| {err['extremes']:.3e} of max|lambda|; "
+          f"|d deltas| {err['deltas']:.3e} of |M|; |d cond| {err['cond']:.3e} of its bound; near_null_count equal "
+          f"({'bit-equal' if exact else 'not bit-equal'} to the plain version); kernel {ms * 1e3:.1f} us/call "
+          f"(events), device {fmt_us(dev_ms)} (eigh3 on sym(M) {fmt_us(eigh3_dev_ms)}), chain floor "
+          f"{fmt_us(floor_ms)}, empty kernel {fmt_us(empty_ms)}, plain {plain_ms * 1e3:.1f} us/call, plain epilogue "
+          f"{epi_kernels} kernels, {fmt_us(epi_dev_ms)} (device); torch.linalg.eigh {library_ms * 1e3:.1f} us/call "
+          f"(events) / {fmt_us(library_dev_ms)} (device); bound {bound_ms * 1e3:.4f} us ({bound_by}); traced as "
+          f"{traced_name!r}")
+    return dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=None, eigh_library_ms=library_ms,
+                library_device_ms=library_dev_ms, eigh3_device_ms=eigh3_dev_ms, epilogue_kernels=epi_kernels,
+                epilogue_device_ms=epi_dev_ms, chain_floor_ms=floor_ms, empty_kernel_ms=empty_ms,
+                max_abs_err=float((got[0] - want[0]).abs().max()), rel_err=max(err["M_psd"], err["deltas"],
+                                                                                err["extremes"], err["cond"]),
+                bit_equal=exact, bound_ms=bound_ms, bound_by=bound_by, unpadded_trace_found=None)
+
+
+def check_projection_kernels(M, eps) -> int:
+    """linalg.domain_projection_psd of the (B, 3, 3) batch M on the card
+    runs psd3's kernel and no other: every kernel in a device trace of 20
+    calls is psd3's (up to DEVICE_TRACE_TRIES padded sessions while one
+    holds no kernel); returns how many the trace held."""
+    from gcslam_torch.ops import linalg
+    from gcslam_torch.utils import cuda_profile
+
+    label = f"domain_projection_psd {str(M.dtype).replace('torch.', '')} {tuple(M.shape)}"
+    for _ in range(DEVICE_TRACE_TRIES):
+        events, _ = device_trace(lambda: linalg.domain_projection_psd(M, eps), 20)
+        kernels = [e.name() for e in events if not e.name().startswith(cuda_profile.NOT_KERNELS)]
+        if kernels:
+            break
+    others = sorted({k for k in kernels if not re.search(EIGEN_TRACE["psd3"], k)})
+    if not kernels or others or len(kernels) > 20:
+        fail(f"{label}: 20 calls ran {len(kernels)} kernels, not psd3's: {others}")
+    print(f"{label}: 20 calls, {len(kernels)} kernels in the trace, all psd3's")
+    return len(kernels)
+
+
+def check_eigen(key, M, eps=None, inputs: str = ""):
+    """check_psd3 or check_eigh of the instance `key` on M."""
+    return check_psd3(M, eps, inputs) if key[0] == "psd3" else check_eigh(key[0], M, inputs)
+
+
+def phase_eigh(device):
+    """eigh3, psd3 and eigh_sym against their plain versions on the inputs
+    of one flagship scan, at each of its instances, in f64 and f32; returns
+    the records keyed by (kernel, dtype, batch shape) and the launches a
+    scan of each recorded instance."""
+    import torch
+
+    rec = eigh_inputs(device)
+    per_scan = rec.launches
+    print("eigen instances of flagship scan " + str(EIGH_RECORD_AFTER) + ": "
+          + ", ".join(f"{k[0]} {k[1]} {k[2]} x{v}" for k, v in sorted(per_scan.items()))
+          + f"; {sum(v for k, v in per_scan.items() if k[0] == 'psd3')} psd3 + "
+          f"{sum(v for k, v in per_scan.items() if k[0] == 'eigh3')} eigh3 launches")
     records = {}
-    for (name, _, shape), M0 in sorted(inputs.items()):
+    for key, M0 in sorted(rec.inputs.items()):
         for dtype in (torch.float64, torch.float32):
-            key = (name, str(dtype).replace("torch.", ""), shape)
-            if key not in records:
-                records[key] = check_eigh(name, M0.to(dtype))
+            k = (key[0], str(dtype).replace("torch.", ""), key[2])
+            if k not in records:
+                records[k] = check_eigen(k, M0.to(dtype), rec.eps.get(key))
+                if k[0] == "psd3":
+                    records[k]["projection_kernels_of_20"] = check_projection_kernels(M0.to(dtype), rec.eps[key])
     return records, per_scan
 
 
@@ -916,7 +1119,7 @@ def phase_eigh_paths(records: dict) -> None:
     if missing:
         fail(f"eigh instances the main paths launched with no input recorded outside a capture: {missing}")
     for key in new:
-        records[key] = check_eigh(key[0], EIGH_SEEN.inputs[key])
+        records[key] = check_eigen(key, EIGH_SEEN.inputs[key], EIGH_SEEN.eps.get(key))
     print(f"eigh: {len(new)} more instances of the main paths held against the plain versions on their own inputs; "
           f"{len(records)} instances in all")
 
@@ -1093,10 +1296,18 @@ def phase_flagship(device):
     from gcslam_torch.ops import eigh
 
     cfg = PipelineConfig()
+    from gcslam_torch.models import runner
+    from gcslam_torch.utils import cuda_profile
+
     _, out, ms_scan, launches, ate, ledger = replay(device, cfg, run, "flagship path")
-    print(f"flagship path: eigh launches {eigh.EIGH3_COUNTER.launches} eigh3 + {eigh.EIGH_SYM_COUNTER.launches} "
-          f"eigh_sym over the replays (" + ", ".join(f"{k[0]} {k[1]} {k[2]} x{v}"
-                                                     for k, v in sorted(eigh_counts().items())) + ")")
+    n = len(run.batches)
+    print(f"flagship path: eigen launches {eigh.PSD3_COUNTER.launches} psd3 + {eigh.EIGH3_COUNTER.launches} eigh3 + "
+          f"{eigh.EIGH_SYM_COUNTER.launches} eigh_sym over the replays, {eigh.PSD3_COUNTER.launches / n:g} psd3 + "
+          f"{eigh.EIGH3_COUNTER.launches / n:g} eigh3 + {eigh.EIGH_SYM_COUNTER.launches / n:g} eigh_sym a scan ("
+          + ", ".join(f"{k[0]} {k[1]} {k[2]} x{v}" for k, v in sorted(eigh_counts().items())) + ")")
+    prof = cuda_profile.profile_record(lambda: runner.run_bag(run.batches[N_WARMUP:N_WARMUP + N_PROFILE_SCANS], cfg,
+                                                              device=device), N_PROFILE_SCANS)
+    print(f"flagship path: {N_PROFILE_SCANS} replayed scans profiled: {fmt_profile(prof)}")
     return run, cfg, out, ms_scan, launches, ate, ledger
 
 
@@ -2405,7 +2616,7 @@ def f32_flagship_child() -> None:
     cfg = PipelineConfig()
     runner.run_bag(run.batches[:N_WARMUP], cfg)
     torch.cuda.synchronize()
-    for counter in (sinkhorn.COUNTER, eigh.EIGH3_COUNTER, eigh.EIGH_SYM_COUNTER):
+    for counter in [sinkhorn.COUNTER] + list(eigen_counters().values()):
         counter.reset()
     t0 = time.perf_counter()
     _, out = runner.run_bag(run.batches, cfg)
@@ -2414,8 +2625,7 @@ def f32_flagship_child() -> None:
     poses = out.pose.double().cpu().numpy()
     ate = compute_ate(poses, run.gt_poses, align="initial")
     calls = sorted({(dt, shape[1:] if shape[0] == 1 else shape) for dt, shape in sinkhorn.COUNTER.by_instance})
-    eigh_launches = [[name, dt, list(shape), n] for name, counter in (("eigh3", eigh.EIGH3_COUNTER),
-                                                                       ("eigh_sym", eigh.EIGH_SYM_COUNTER))
+    eigh_launches = [[name, dt, list(shape), n] for name, counter in eigen_counters().items()
                      for (dt, shape), n in sorted(counter.by_instance.items())]
     os.makedirs(OUT_DIR, exist_ok=True)
     np.savez(F32_EIGH_INPUTS, **EIGH_SEEN.host())
@@ -2587,16 +2797,17 @@ def compare_routes(ref, got) -> dict:
 @contextlib.contextmanager
 def plain_routes():
     """Every kernel of the step on its plain version: the Sinkhorn loop, the
-    3 x 3 Jacobi chain and the fixed-sweep Jacobi in plain torch."""
+    3 x 3 Jacobi chain (and the 3 x 3 projection's torch epilogue) and the
+    fixed-sweep Jacobi in plain torch."""
     from gcslam_torch.ops import association, eigh, sinkhorn
 
-    saved = association.sinkhorn_unbalanced, eigh.eigh3, eigh.eigh_sym
+    saved = association.sinkhorn_unbalanced, eigh.eigh3, eigh.psd3, eigh.eigh_sym
     association.sinkhorn_unbalanced = sinkhorn.sinkhorn_unbalanced_reference
-    eigh.eigh3, eigh.eigh_sym = eigh.eigh3_reference, eigh.eigh_sym_reference
+    eigh.eigh3, eigh.psd3, eigh.eigh_sym = eigh.eigh3_reference, eigh.psd3_reference, eigh.eigh_sym_reference
     try:
         yield
     finally:
-        association.sinkhorn_unbalanced, eigh.eigh3, eigh.eigh_sym = saved
+        association.sinkhorn_unbalanced, eigh.eigh3, eigh.psd3, eigh.eigh_sym = saved
 
 
 def phase_compiled(device, run=None, out_flag=None):
@@ -2663,6 +2874,8 @@ def phase_compiled(device, run=None, out_flag=None):
     same_as_phase3 = None if out_flag is None else torch.equal(out_g.pose, out_flag.pose)
     per_scan = {k: v / N_SCANS for k, v in eigh_launches.items()}
     rec["eigh_launches_per_scan"] = {f"{k[0]} {k[1]} {k[2]}": v for k, v in sorted(per_scan.items())}
+    print(f"compiled step: eigen launches a replayed scan: " + ", ".join(
+        f"{name} {sum(v for k, v in per_scan.items() if k[0] == name):g}" for name in EIGEN_COUNTERS))
     print(f"compiled step, {N_SCANS} flagship scans: poses {'bit-equal' if equal else 'not bit-equal'} to the eager "
           f"step's (max |d| {d_pose:.3e}), tape {'bit-equal' if tape_equal else 'not bit-equal'}; ATE {ate_m:.4f} m "
           f"/ {ate_deg:.4f} deg; {launches} sinkhorn launches counted over the replays; transfer ledger "
@@ -2713,19 +2926,20 @@ def phase_compiled(device, run=None, out_flag=None):
 
     # the graph's kernels a replay, from torch.profiler: the launches the
     # counters credit over the replays against the kernels the device ran
-    counted = (("sinkhorn_kernel", sinkhorn.COUNTER), ("eigh3_kernel", eigh.EIGH3_COUNTER),
-               ("eigh_sym_kernel", eigh.EIGH_SYM_COUNTER))
-    for _, counter in counted:
+    counted = {"sinkhorn_kernel": ("sinkhorn_kernel", sinkhorn.COUNTER)}
+    counted.update({name: (EIGEN_TRACE[name], counter) for name, counter in eigen_counters().items()})
+    for _, counter in counted.values():
         counter.reset()
     prof, span_ms = cuda_profile.profile(lambda: runner.run_bag(span[:N_PROFILE_SCANS], cfg, state=state,
                                                                 device=device))
     ran = cuda_profile.kernel_counts(prof)
     raw = cuda_profile.raw_events(prof)
-    credited = {k: c.launches for k, c in counted}
-    on_device = {k: sum(n for name, n in ran.items() if k in name) for k, _ in counted}
+    credited = {k: c.launches for k, (_, c) in counted.items()}
+    on_device = {k: sum(n for name, n in ran.items() if re.search(pat, name)) for k, (pat, _) in counted.items()}
     busy = cuda_profile.device_activity(raw)
-    rec["kernel_device_ms_per_scan"] = {k: sum(e.duration_ns() for e in busy if k in e.name()) / 1e6 / N_PROFILE_SCANS
-                                        for k, _ in counted}
+    rec["kernel_device_ms_per_scan"] = {
+        k: sum(e.duration_ns() for e in busy if re.search(pat, e.name())) / 1e6 / N_PROFILE_SCANS
+        for k, (pat, _) in counted.items()}
     rec["profile"] = {"graph": cuda_profile.record(raw, span_ms, N_PROFILE_SCANS),
                       "eager": cuda_profile.profile_record(
                           lambda: runner.eager_steps(state, span[:N_PROFILE_SCANS], cfg), N_PROFILE_SCANS)}
@@ -2897,7 +3111,7 @@ def main(argv=None) -> None:
             source="gcslam_torch/csrc/raster.cu", replaces="gcslam_tpu/outputs/rendering_pallas.py:128",
             launches=raster_launches.get(key, 0), max_abs_err=err, ms=rec["ms"], device_ms=rec["device_ms"],
             plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"], bound_by=rec["bound_by"], library_ms=None))
-    for name in ("eigh3", "eigh_sym"):
+    for name in EIGEN_COUNTERS:
         if not any(k[0] == name and n > 0 for k, n in EIGH_LAUNCHES.items()):
             fail(f"the main paths launched no {name} kernel")
     EIGH_SEEN.uninstall()
@@ -2911,8 +3125,12 @@ def main(argv=None) -> None:
             max_abs_err=rec["max_abs_err"], rel_err=rec["rel_err"], bit_equal=rec["bit_equal"], ms=rec["ms"],
             device_ms=rec["device_ms"], plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
             bound_by=rec["bound_by"], library_ms=rec["library_ms"], library_device_ms=rec["library_device_ms"],
-            chain_floor_ms=rec["chain_floor_ms"], unpadded_trace_found=rec["unpadded_trace_found"]))
-    kernels = [k for k in kernels if k["launches"] > 0 or not k["name"].startswith("eigh")]
+            chain_floor_ms=rec["chain_floor_ms"], empty_kernel_ms=rec["empty_kernel_ms"],
+            unpadded_trace_found=rec["unpadded_trace_found"],
+            **{k: rec[k] for k in ("eigh_library_ms", "eigh3_device_ms", "epilogue_kernels", "epilogue_device_ms",
+                                   "projection_kernels_of_20")
+               if k in rec}))
+    kernels = [k for k in kernels if k["launches"] > 0 or k["name"] not in EIGEN_COUNTERS]
     missing = [f"{k['name']} {k['instance']}" for k in kernels if k["launches"] < 1]
     if full and missing:
         fail(f"kernel instances the main paths never launched: {missing}")

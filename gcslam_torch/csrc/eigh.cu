@@ -5,19 +5,32 @@
 // chains of small launches or as library calls that synchronize with the
 // host:
 //
-//  - eigh3_kernel: the 3 x 3 cyclic Jacobi of the JAX package's
+//  - eigh3_kernel<T, kPsd>: the 3 x 3 cyclic Jacobi of the JAX package's
 //    ops/linalg.py:160 (eigh_3x3, "~18 fused VPU steps"). The port's plain
 //    version (ops/eigh.eigh3_reference, the chain of ops/linalg's
 //    _jacobi_rot_3x3) is ~38 launches a rotation, 18 rotations a call.
-//    One thread per matrix keeps A, V and the rotation in registers and
-//    does the chain's arithmetic in its order: symmetrize, scale by
-//    max|A|, 6 sweeps over (0,1), (0,2), (1,2) of A <- sym(J^T A J),
-//    V <- V J with the full 3 x 3 products (their zero terms add exact
-//    zeros, and a NaN spreads as it does through the products), rescale,
-//    then the rank-based stable ordering of ops/linalg.eigh_3x3. Built with
+//    One thread per matrix keeps A's six entries, V and the rotation in
+//    registers and does the chain's arithmetic in its order: symmetrize,
+//    scale by max|A|, 6 sweeps over (0,1), (0,2), (1,2) of
+//    A <- sym(J^T A J), V <- V J, rescale, then the rank-based stable
+//    ordering of ops/linalg.eigh_3x3. A rotation touches rows and columns
+//    p, q of A and columns p, q of V alone (rotate_a, rotate_v): the terms
+//    of the full 3 x 3 products that it leaves out add exact zeros, so the
+//    result is the full products' to the bit but for the sign of a zero.
+//    Its square roots and divisions are skipped where the `small` guard
+//    discards them (rotation3: the later sweeps of a converged matrix).
+//    The block's 128 matrices are read into shared memory and their
+//    outputs written back with consecutive threads on consecutive words.
+//    kPsd (gcslam::psd3, ops/eigh.psd3) fuses linalg.domain_projection_psd
+//    for n = 3 into the same thread after the chain: M_sym, the floor
+//    max(lambda, eps) (NaN kept), M_psd = V diag(vals) V^T summed over k in
+//    order, and the six certificate fields, the JAX package's
+//    ops/linalg.py:33 through its eigh_3x3 route, one launch where the
+//    plain composition is eigh3 and 15 more kernels. Built with
 //    --fmad=false, each rotation is the plain chain's IEEE operations; the
-//    plain chain's 3 x 3 products go to cuBLAS, which may fuse and order
-//    its sums otherwise, so the two agree to a few ulp.
+//    plain chain's 3 x 3 products and reconstruction go to cuBLAS, and its
+//    norms are torch reductions, which may fuse and order their sums
+//    otherwise, so the two agree to a few ulp.
 //  - eigh_sym_kernel: a symmetric eigendecomposition of n x n for n <= 32
 //    (the step's 6 x 6 and 22 x 22), replacing torch.linalg.eigh /
 //    eigvalsh (cuSOLVER, whose info check synchronizes with the host)
@@ -57,11 +70,13 @@
 //    design in plain torch against the plain version on the CPU.
 //
 // What bounds them on this card: the bytes are 8 x (n^2 in + n + n^2 out)
-// a matrix; the work is ~1.5k FLOPs a 3 x 3 matrix and ~9 n^3 a sweep
-// for eigh_sym. Both are far below the card's rates at the step's batches
-// (1 to 8192 matrices of 3 x 3, 1 to 7 of 6 x 6 or 22 x 22): latency
-// bounds both. eigh3 is one thread's chain of dependent divisions and
-// square roots. eigh_sym is kSymSweeps x (n' - 1) rounds (315 at 22 x 22)
+// a matrix (psd3: 9 in, 15 out); the work is ~1.5k FLOPs a 3 x 3 matrix
+// (psd3 ~140 more) and ~9 n^3 a sweep for eigh_sym. Both are far below the
+// card's rates at the step's batches (1 to 8192 matrices of 3 x 3, 1 to 7
+// of 6 x 6 or 22 x 22): latency bounds both. eigh3 is one thread's chain
+// of dependent divisions and square roots; eigh3_chain_kernel runs that
+// chain alone (its floor), and empty_kernel times the fixed cost of a
+// launch. eigh_sym is kSymSweeps x (n' - 1) rounds (315 at 22 x 22)
 // of one dependent chain on the rotation warp: the three entries, two
 // square roots and two divisions, then the shuffles that hand (c, s) to the
 // next round. eigh_sym_chain_kernel runs that chain alone in one thread
@@ -78,6 +93,7 @@
 namespace {
 
 constexpr int kThreads3 = 128;  // eigh3: matrices per block
+constexpr int kSweeps3 = 6;     // eigh3: sweeps (ops/eigh.EIGH3_SWEEPS)
 constexpr int kMaxN = 32;       // eigh_sym: the largest n
 constexpr int kSymSweeps = 15;  // eigh_sym: sweeps (ops/eigh.EIGH_SYM_SWEEPS, from its convergence check)
 
@@ -90,6 +106,14 @@ __device__ __forceinline__ T nanmax(T a, T b) {
   if (a != a) return a;
   if (b != b) return b;
   return a > b ? a : b;
+}
+
+// NaN-propagating min (torch.amin's semantics)
+template <typename T>
+__device__ __forceinline__ T nanmin(T a, T b) {
+  if (a != a) return a;
+  if (b != b) return b;
+  return a < b ? a : b;
 }
 
 // The rotation zeroing A[p, q] (ops/eigh._rotation): J[p, p] = J[q, q] = c,
@@ -115,85 +139,188 @@ __device__ __forceinline__ void rotation(T app, T aqq, T apq, T& c, T& s, bool& 
   rotation_cs(rotation_t(app, aqq, apq, small), c, s);
 }
 
-// out = x @ y for 3 x 3, each sum over k in order
+// eigh3's rotation: rotation()'s (c, s) and guards, with the square roots
+// and divisions skipped where `small` discards them: t = 0 gives
+// c = 1 / sqrt(1 + 0 * 0) = 1 and s = 0 * 1 = 0 exactly. A converged 3 x 3
+// Jacobi's later rotations are all `small`, so this takes most of its
+// chain's square roots and divisions (some on subnormal operands) off.
 template <typename T>
-__device__ __forceinline__ void mm3(const T x[9], const T y[9], T out[9]) {
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-#pragma unroll
-    for (int j = 0; j < 3; ++j) out[3 * i + j] = x[3 * i] * y[j] + x[3 * i + 1] * y[3 + j] + x[3 * i + 2] * y[6 + j];
+__device__ __forceinline__ void rotation3(T app, T aqq, T apq, T& c, T& s) {
+  if (fabs(apq) <= T(1e-24) * (fabs(app) + fabs(aqq) + T(1e-30))) {
+    c = T(1);
+    s = T(0);
+  } else {
+    bool small;
+    rotation(app, aqq, apq, c, s, small);
+  }
 }
 
+// The sparse rotation of a symmetric 3 x 3 A zeroing A[p][q] (r the third
+// index), on its entries app, aqq, apq, apr = A[p][r], aqr = A[q][r]: the
+// non-zero terms of X = J^T A and Y = X J in their order, then
+// A <- 0.5 (Y + Y^T). A is exactly symmetric, so Y[p][r] == Y[r][p] and
+// 0.5 (y + y) == y (|y| <= 3 after the scaling): the diagonal and the r
+// column take Y's entry itself; A[r][r] does not change.
 template <typename T>
-__global__ void __launch_bounds__(kThreads3)
-eigh3_kernel(const T* __restrict__ M, T* __restrict__ lam_out, T* __restrict__ vec_out, long long n_mat) {
-  const long long b = blockIdx.x * (long long)kThreads3 + threadIdx.x;
-  if (b >= n_mat) return;
-  const T* m = M + 9 * b;
-  T A[9], V[9];
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-#pragma unroll
-    for (int j = 0; j < 3; ++j) A[3 * i + j] = T(0.5) * (m[3 * i + j] + m[3 * j + i]);
-  T scale = T(0);
-#pragma unroll
-  for (int k = 0; k < 9; ++k) scale = nanmax(scale, T(fabs(A[k])));
-  const T scale_safe = scale > T(0) ? scale : T(1);
-#pragma unroll
-  for (int k = 0; k < 9; ++k) {
-    A[k] = A[k] / scale_safe;
-    V[k] = (k % 4 == 0) ? T(1) : T(0);
-  }
-  for (int sweep = 0; sweep < 6; ++sweep) {
-#pragma unroll
-    for (int rot = 0; rot < 3; ++rot) {
-      const int p = rot == 2 ? 1 : 0;
-      const int q = rot == 0 ? 1 : 2;
-      T c, s;
-      bool small;
-      rotation(A[4 * p], A[4 * q], A[3 * p + q], c, s, small);
-      T J[9], Jt[9], X[9], Y[9];
-#pragma unroll
-      for (int k = 0; k < 9; ++k) J[k] = (k % 4 == 0) ? T(1) : T(0);
-      J[4 * p] = c;
-      J[4 * q] = c;
-      J[3 * p + q] = s;
-      J[3 * q + p] = -s;
-#pragma unroll
-      for (int i = 0; i < 3; ++i)
-#pragma unroll
-        for (int j = 0; j < 3; ++j) Jt[3 * i + j] = J[3 * j + i];
-      mm3(Jt, A, X);
-      mm3(X, J, Y);
-#pragma unroll
-      for (int i = 0; i < 3; ++i)
-#pragma unroll
-        for (int j = 0; j < 3; ++j) A[3 * i + j] = T(0.5) * (Y[3 * i + j] + Y[3 * j + i]);
-      mm3(V, J, X);
-#pragma unroll
-      for (int k = 0; k < 9; ++k) V[k] = X[k];
-    }
-  }
-  T lam[3];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) lam[i] = A[4 * i] * scale_safe;
-  int rank[3];
+__device__ __forceinline__ void rotate_a(T& app, T& aqq, T& apq, T& apr, T& aqr, T c, T s) {
+  const T xpp = c * app - s * apq, xpq = c * apq - s * aqq;
+  const T xqp = s * app + c * apq, xqq = s * apq + c * aqq;
+  app = c * xpp - s * xpq;
+  aqq = s * xqp + c * xqq;
+  apq = T(0.5) * ((s * xpp + c * xpq) + (c * xqp - s * xqq));
+  const T npr = c * apr - s * aqr;
+  aqr = s * apr + c * aqr;
+  apr = npr;
+}
+
+// V <- V J for the rotation of (P, Q): columns P and Q of V, the non-zero
+// terms of the product in their order.
+template <int P, int Q, typename T>
+__device__ __forceinline__ void rotate_v(T V[9], T c, T s) {
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
-    rank[i] = 0;
-#pragma unroll
-    for (int j = 0; j < 3; ++j) rank[i] += (lam[j] < lam[i]) || (lam[j] == lam[i] && j < i);
+    const T x = V[3 * i + P], y = V[3 * i + Q];
+    V[3 * i + P] = c * x - s * y;
+    V[3 * i + Q] = s * x + c * y;
   }
+}
+
+// x[o] for o in {0, 1, 2}, by selects (no local-memory indexing)
+template <typename T>
+__device__ __forceinline__ T pick3(T x0, T x1, T x2, int o) {
+  return o == 0 ? x0 : (o == 1 ? x1 : x2);
+}
+
+// A = sym(m) as its six entries a = (a00, a11, a22, a01, a02, a12), scaled
+// by max|A| (1 if that is 0 or NaN); returns the scale.
+template <typename T>
+__device__ __forceinline__ T sym_scaled3(const T m[9], T a[6]) {
+  a[0] = T(0.5) * (m[0] + m[0]), a[1] = T(0.5) * (m[4] + m[4]), a[2] = T(0.5) * (m[8] + m[8]);
+  a[3] = T(0.5) * (m[1] + m[3]), a[4] = T(0.5) * (m[2] + m[6]), a[5] = T(0.5) * (m[5] + m[7]);
+  T scale = T(0);
 #pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    int o = 0;  // argmax of (rank == k): the first such index, else 0
+  for (int k = 0; k < 6; ++k) scale = nanmax(scale, T(fabs(a[k])));
+  const T sc = scale > T(0) ? scale : T(1);
 #pragma unroll
-    for (int i = 2; i >= 0; --i)
-      if (rank[i] == k) o = i;
-    lam_out[3 * b + k] = lam[o];
-#pragma unroll
-    for (int r = 0; r < 3; ++r) vec_out[9 * b + 3 * r + k] = V[3 * r + o];
+  for (int k = 0; k < 6; ++k) a[k] = a[k] / sc;
+  return sc;
+}
+
+// eigh3's kSweeps3 sweeps over (0, 1), (0, 2), (1, 2) on a (sym_scaled3's
+// order) and, with kV, on V.
+template <typename T, bool kV>
+__device__ __forceinline__ void sweeps3(T a[6], T V[9]) {
+  for (int sweep = 0; sweep < kSweeps3; ++sweep) {
+    T c, s;
+    rotation3(a[0], a[1], a[3], c, s);
+    rotate_a(a[0], a[1], a[3], a[4], a[5], c, s);
+    if constexpr (kV) rotate_v<0, 1>(V, c, s);
+    rotation3(a[0], a[2], a[4], c, s);
+    rotate_a(a[0], a[2], a[4], a[3], a[5], c, s);
+    if constexpr (kV) rotate_v<0, 2>(V, c, s);
+    rotation3(a[1], a[2], a[5], c, s);
+    rotate_a(a[1], a[2], a[5], a[3], a[4], c, s);
+    if constexpr (kV) rotate_v<1, 2>(V, c, s);
   }
+}
+
+// eigh3 / psd3 of the block's kThreads3 matrices: loads and stores go
+// through shared memory, consecutive threads on consecutive words; each
+// thread then runs one matrix's chain in registers. kPsd: after the chain,
+// linalg.domain_projection_psd's result for n = 3 (gcslam::psd3): out9 gets
+// M_psd, out_small the six PsdCert fields; else out9 the eigenvectors and
+// out_small the eigenvalues.
+template <typename T, bool kPsd>
+__global__ void __launch_bounds__(kThreads3)
+eigh3_kernel(const T* __restrict__ M, T* __restrict__ out9, T* __restrict__ out_small, long long n_mat, T eps,
+             T null_below) {
+  constexpr int kSmall = kPsd ? 6 : 3;  // out_small's values a matrix
+  __shared__ T tile[kThreads3 * 9];
+  __shared__ T tile_small[kThreads3 * kSmall];
+  const long long first = (long long)blockIdx.x * kThreads3;
+  const int here = (int)(n_mat - first < kThreads3 ? n_mat - first : kThreads3);
+  const int tid = threadIdx.x;
+  for (int e = tid; e < 9 * here; e += kThreads3) tile[e] = M[9 * first + e];
+  __syncthreads();
+  T o9[9], os[kSmall];
+  if (tid < here) {
+    T m[9];
+#pragma unroll
+    for (int k = 0; k < 9; ++k) m[k] = tile[9 * tid + k];
+    // psd3: M_sym = sym(M), on which the projection calls eigh3, which
+    // symmetrizes once more
+    T ms[9];
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+      for (int j = 0; j < 3; ++j) ms[3 * i + j] = kPsd ? T(0.5) * (m[3 * i + j] + m[3 * j + i]) : m[3 * i + j];
+    T a[6], V[9];
+    const T sc = sym_scaled3(ms, a);
+#pragma unroll
+    for (int k = 0; k < 9; ++k) V[k] = (k % 4 == 0) ? T(1) : T(0);
+    sweeps3<T, true>(a, V);
+    const T lam[3] = {a[0] * sc, a[1] * sc, a[2] * sc};
+    int rank[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      rank[i] = 0;
+#pragma unroll
+      for (int j = 0; j < 3; ++j) rank[i] += (lam[j] < lam[i]) || (lam[j] == lam[i] && j < i);
+    }
+    T w[3], U[9];  // eigenvalues ascending, eigenvectors as columns
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      int o = 0;  // argmax of (rank == k): the first such index, else 0
+#pragma unroll
+      for (int i = 2; i >= 0; --i)
+        if (rank[i] == k) o = i;
+      w[k] = pick3(lam[0], lam[1], lam[2], o);
+#pragma unroll
+      for (int r = 0; r < 3; ++r) U[3 * r + k] = pick3(V[3 * r], V[3 * r + 1], V[3 * r + 2], o);
+    }
+    if constexpr (kPsd) {
+      T vals[3];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) vals[k] = nanmax(w[k], eps);  // torch.clamp / jnp.maximum: NaN stays
+      T sym_sq = T(0), proj_sq = T(0);
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          // M_psd = (V * vals) V^T, summed over k in order
+          T acc = (U[3 * i] * vals[0]) * U[3 * j];
+          acc = acc + (U[3 * i + 1] * vals[1]) * U[3 * j + 1];
+          acc = acc + (U[3 * i + 2] * vals[2]) * U[3 * j + 2];
+          o9[3 * i + j] = acc;
+          const T ds = ms[3 * i + j] - m[3 * i + j], dp = acc - ms[3 * i + j];
+          sym_sq = sym_sq + ds * ds;
+          proj_sq = proj_sq + dp * dp;
+        }
+      const T lo = nanmin(nanmin(vals[0], vals[1]), vals[2]);
+      const T hi = nanmax(nanmax(vals[0], vals[1]), vals[2]);
+      os[0] = dsqrt(proj_sq);
+      os[1] = dsqrt(sym_sq);
+      os[2] = lo;
+      os[3] = hi;
+      os[4] = hi / lo;
+      os[5] = T(int(vals[0] < null_below) + int(vals[1] < null_below) + int(vals[2] < null_below));
+    } else {
+#pragma unroll
+      for (int k = 0; k < 9; ++k) o9[k] = U[k];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) os[k] = w[k];
+    }
+  }
+  __syncthreads();  // every thread has read its matrix out of `tile`
+  if (tid < here) {
+#pragma unroll
+    for (int k = 0; k < 9; ++k) tile[9 * tid + k] = o9[k];
+#pragma unroll
+    for (int k = 0; k < kSmall; ++k) tile_small[kSmall * tid + k] = os[k];
+  }
+  __syncthreads();
+  for (int e = tid; e < 9 * here; e += kThreads3) out9[9 * first + e] = tile[e];
+  for (int e = tid; e < kSmall * here; e += kThreads3) out_small[kSmall * first + e] = tile_small[e];
 }
 
 // Player at position `pos` of round `r` in the circle pairing of m players.
@@ -585,13 +712,36 @@ __global__ void eigh_sym_chain_kernel(const T* __restrict__ blk, T* __restrict__
   out[1] = s;
 }
 
+// The latency floor of eigh3 (chip_smoke.py phase 2): the dependent chain
+// of its 18 rotations in one thread, registers only, on one matrix M: the
+// symmetrization and scaling, then per rotation (c, s) and the sparse update
+// of A (rotate_a), whose entries the next rotation reads. No V, no
+// ordering, no batch. `out` gets the scaled diagonal of the last A; its
+// plain version is ops/eigh.eigh3_chain_reference.
 template <typename T>
-int launch_eigh3(const void* M, void* lam, void* vec, long long n_mat, void* stream) {
+__global__ void eigh3_chain_kernel(const T* __restrict__ M, T* __restrict__ out) {
+  T m[9], a[6];
+#pragma unroll
+  for (int k = 0; k < 9; ++k) m[k] = M[k];
+  sym_scaled3(m, a);
+  sweeps3<T, false>(a, nullptr);
+  out[0] = a[0];
+  out[1] = a[1];
+  out[2] = a[2];
+}
+
+// A kernel that does nothing, launched as one thread: the fixed cost of a
+// launch of this library on the card (chip_smoke.py phase 2).
+__global__ void empty_kernel() {}
+
+template <typename T, bool kPsd>
+int launch_eigh3(const void* M, void* out9, void* out_small, long long n_mat, double eps, double null_below,
+                 void* stream) {
   if (n_mat <= 0) return 0;
   const long long blocks = (n_mat + kThreads3 - 1) / kThreads3;
   if (blocks > 2147483647LL) return (int)cudaErrorInvalidConfiguration;
-  eigh3_kernel<T><<<(unsigned)blocks, kThreads3, 0, (cudaStream_t)stream>>>(
-      (const T*)M, (T*)lam, (T*)vec, n_mat);
+  eigh3_kernel<T, kPsd><<<(unsigned)blocks, kThreads3, 0, (cudaStream_t)stream>>>(
+      (const T*)M, (T*)out9, (T*)out_small, n_mat, (T)eps, (T)null_below);
   return (int)cudaGetLastError();
 }
 
@@ -620,14 +770,45 @@ int launch_sym_chain(const void* blk, void* out, int n_rounds, void* stream) {
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+int launch_eigh3_chain(const void* M, void* out, void* stream) {
+  eigh3_chain_kernel<T><<<1, 1, 0, (cudaStream_t)stream>>>((const T*)M, (T*)out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
+extern "C" int gcslam_eigh3_chain_f32(const void* M, void* out, void* stream) {
+  return launch_eigh3_chain<float>(M, out, stream);
+}
+
+extern "C" int gcslam_eigh3_chain_f64(const void* M, void* out, void* stream) {
+  return launch_eigh3_chain<double>(M, out, stream);
+}
+
+extern "C" int gcslam_empty(void* stream) {
+  empty_kernel<<<1, 1, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
+}
+
 extern "C" int gcslam_eigh3_f32(const void* M, void* lam, void* vec, long long n_mat, void* stream) {
-  return launch_eigh3<float>(M, lam, vec, n_mat, stream);
+  return launch_eigh3<float, false>(M, vec, lam, n_mat, 0.0, 0.0, stream);
 }
 
 extern "C" int gcslam_eigh3_f64(const void* M, void* lam, void* vec, long long n_mat, void* stream) {
-  return launch_eigh3<double>(M, lam, vec, n_mat, stream);
+  return launch_eigh3<double, false>(M, vec, lam, n_mat, 0.0, 0.0, stream);
+}
+
+// psd3: M_psd (n_mat, 3, 3) and the certificate (n_mat, 6) of
+// domain_projection_psd(M, eps); null_below = 10 eps (near_null_count)
+extern "C" int gcslam_psd3_f32(const void* M, void* M_psd, void* cert, long long n_mat, double eps,
+                               double null_below, void* stream) {
+  return launch_eigh3<float, true>(M, M_psd, cert, n_mat, eps, null_below, stream);
+}
+
+extern "C" int gcslam_psd3_f64(const void* M, void* M_psd, void* cert, long long n_mat, double eps,
+                               double null_below, void* stream) {
+  return launch_eigh3<double, true>(M, M_psd, cert, n_mat, eps, null_below, stream);
 }
 
 extern "C" int gcslam_eigh_sym_f32(const void* M, void* lam, void* vec, int n_mat, int n, void* stream) {

@@ -583,9 +583,7 @@ def scan_step(state: StepState, batch: ScanBatch, config: PipelineConfig,
     batch = ScanBatch(*[_nan0(x) if x.is_floating_point() else x for x in batch])
 
     Q = iw.process_noise_to_Q(state.process_iw, cfg.eps_psd)
-    Sigma_g = iw.measurement_noise_mode(state.meas_iw, 0, cfg.eps_psd)
-    Sigma_a = iw.measurement_noise_mode(state.meas_iw, 1, cfg.eps_psd)
-    Sigma_l = iw.measurement_noise_mode(state.meas_iw, 2, cfg.eps_psd)
+    Sigma_g, Sigma_a, Sigma_l = iw.measurement_noise_modes(state.meas_iw, cfg.eps_psd).unbind(-3)
 
     atlas = state.atlas
     map_branch = None

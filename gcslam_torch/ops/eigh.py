@@ -4,7 +4,14 @@ CUDA kernels of csrc/eigh.cu and their plain PyTorch versions.
   - eigh3(M): (..., 3, 3) by 6 sweeps of cyclic Jacobi, the JAX package's
     ops/linalg.eigh_3x3. Its plain version `eigh3_reference` is the port's
     chain of small ops (a rotation is ~38 launches on the card); the CPU
-    path runs it.
+    path runs it. The kernel rotates only rows and columns p, q (the same
+    bits but for the sign of a zero).
+  - psd3(M, eps_psd): (..., 3, 3) -> (M_psd, certificate (..., 6)), the
+    whole of linalg.domain_projection_psd for n = 3 (symmetrize, eigh3,
+    floor, reconstruct, the six PsdCert fields) in one launch of the same
+    kernel. Its plain version `psd3_reference` is the composition the
+    projection made before (`psd_parts`, the torch epilogue, through
+    eigh3_reference), which the CPU path runs bit for bit.
   - eigh_sym(M): (..., n, n) for n <= MAX_N by EIGH_SYM_SWEEPS sweeps of
     round-robin parallel-ordered Jacobi, with no info check and no host
     sync (torch.linalg.eigh's cuSOLVER call checks its info on the host).
@@ -19,14 +26,19 @@ CUDA kernels of csrc/eigh.cu and their plain PyTorch versions.
     run the plain Jacobi's 231 rotations x EIGH_SYM_SWEEPS per 22 x 22
     call.
 
-eigh3 and eigh_sym are the custom operators `gcslam::eigh3` and
-`gcslam::eigh_sym`: the plain version their CPU kernel, the launch their
-CUDA kernel, and a vmap rule that folds every vmapped dim into the one
-launch (parallel/sweep vmaps scan_step). The kernels are compiled with
-nvcc on first use into csrc/build/ (ops/cuda_build.py), with --fmad=false
-so that each performs its plain version's IEEE operations: eigh_sym in
-the same order, eigh3 up to the order of the plain chain's 3 x 3 products
-(cuBLAS on the card). Eigenvalues are ascending; ties keep index order
+eigh3, psd3 and eigh_sym are the custom operators `gcslam::eigh3`,
+`gcslam::psd3` and `gcslam::eigh_sym`: the plain version their CPU kernel,
+the launch their CUDA kernel (outputs from torch.empty, no host sync, so a
+CUDA graph captures it), a vmap rule that folds every vmapped dim into the
+one launch (parallel/sweep vmaps scan_step) and a LaunchCounter each
+(EIGH3_COUNTER, PSD3_COUNTER, EIGH_SYM_COUNTER). `eigh3_chain` and
+`sym_chain` time the kernels' rotation chains alone and `empty_launch` a
+launch that does nothing (chip_smoke.py phase 2); they are on no path.
+The kernels are compiled with nvcc on first use into csrc/build/
+(ops/cuda_build.py), with --fmad=false so that each performs its plain
+version's IEEE operations: eigh_sym in the same order, eigh3 and psd3 up
+to the order of the plain chain's 3 x 3 products and of the projection's
+norms (cuBLAS and torch reductions on the card). Eigenvalues are ascending; ties keep index order
 (the rank ordering of the JAX eigh_3x3; a NaN matrix gives NaN).
 Eigenvectors are not sign-normalized.
 """
@@ -58,13 +70,19 @@ EIGH3_SWEEPS = 6
 _ARGS3 = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_void_p]
 _ARGS_SYM = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
 _ARGS_CHAIN = [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p]
+_ARGS_CHAIN3 = [ctypes.c_void_p] * 3
+_ARGS_PSD3 = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_double, ctypes.c_double, ctypes.c_void_p]
 # --fmad=false: no multiply-add contraction, the plain versions' IEEE operations
 _KERNEL = KernelLibrary("eigh.cu", "gcslam_eigh",
                         {"gcslam_eigh3_f32": _ARGS3, "gcslam_eigh3_f64": _ARGS3,
                          "gcslam_eigh_sym_f32": _ARGS_SYM, "gcslam_eigh_sym_f64": _ARGS_SYM,
-                         "gcslam_eigh_sym_chain_f32": _ARGS_CHAIN, "gcslam_eigh_sym_chain_f64": _ARGS_CHAIN},
+                         "gcslam_eigh_sym_chain_f32": _ARGS_CHAIN, "gcslam_eigh_sym_chain_f64": _ARGS_CHAIN,
+                         "gcslam_psd3_f32": _ARGS_PSD3, "gcslam_psd3_f64": _ARGS_PSD3,
+                         "gcslam_eigh3_chain_f32": _ARGS_CHAIN3, "gcslam_eigh3_chain_f64": _ARGS_CHAIN3,
+                         "gcslam_empty": [ctypes.c_void_p]},
                         extra_flags=["--fmad=false"])
 EIGH3_COUNTER = LaunchCounter()
+PSD3_COUNTER = LaunchCounter()
 EIGH_SYM_COUNTER = LaunchCounter()
 
 
@@ -151,6 +169,31 @@ def eigh3_reference(M: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return _ascending(torch.diagonal(A, dim1=-2, dim2=-1) * scale_safe[..., 0], V)
 
 
+def psd_parts(M: torch.Tensor, eps_psd: float, eig=eigh3_reference):
+    """linalg.domain_projection_psd in plain torch, with `eig` the
+    eigendecomposition of sym(M): M_sym, sym_delta, eig(M_sym), the
+    eigenvalue floor, M_psd = (V * vals) V^T, and the certificate; returns
+    (M_psd, [projection_delta, sym_delta, eig_min, eig_max, cond,
+    near_null_count]) (linalg.PsdCert's order)."""
+    M_sym = _sym(M)
+    sym_delta = torch.linalg.matrix_norm(M_sym - M, ord="fro")
+    eigvals, eigvecs = eig(M_sym)
+    vals = torch.clamp(eigvals, min=eps_psd)
+    M_psd = (eigvecs * vals[..., None, :]) @ eigvecs.transpose(-1, -2)
+    projection_delta = torch.linalg.matrix_norm(M_psd - M_sym, ord="fro")
+    eig_min = vals.amin(-1)
+    eig_max = vals.amax(-1)
+    near_null = torch.sum(vals < 10.0 * eps_psd, dim=-1).to(M.dtype)
+    return M_psd, [projection_delta, sym_delta, eig_min, eig_max, eig_max / eig_min, near_null]
+
+
+def psd3_reference(M: torch.Tensor, eps_psd: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of psd3: psd_parts through eigh3_reference, the
+    certificate fields stacked on a last axis of 6."""
+    M_psd, fields = psd_parts(M, eps_psd)
+    return M_psd, torch.stack(fields, -1)
+
+
 @lru_cache(maxsize=None)
 def round_robin(n: int) -> Tuple[Tuple[np.ndarray, np.ndarray], ...]:
     """The pairs (P, Q) of every round of one sweep, P < Q: the circle
@@ -230,6 +273,64 @@ def sym_chain_reference(block: torch.Tensor, n_rounds: int) -> torch.Tensor:
     return torch.stack([c, s])
 
 
+def _rotate_a(app, aqq, apq, apr, aqr, c, s):
+    """The sparse rotation of a symmetric 3 x 3 A zeroing A[p, q] (r the
+    third index), on (A[p, p], A[q, q], A[p, q], A[p, r], A[q, r]): the
+    non-zero terms of J^T A and of (J^T A) J in their order, then
+    0.5 (Y + Y^T) where Y is not symmetric (csrc/eigh.cu rotate_a)."""
+    xpp, xpq = c * app - s * apq, c * apq - s * aqq
+    xqp, xqq = s * app + c * apq, s * apq + c * aqq
+    return (c * xpp - s * xpq, s * xqp + c * xqq, 0.5 * ((s * xpp + c * xpq) + (c * xqp - s * xqq)),
+            c * apr - s * aqr, s * apr + c * aqr)
+
+
+def eigh3_chain_reference(M: torch.Tensor) -> torch.Tensor:
+    """The plain version of csrc/eigh.cu's eigh3_chain_kernel: eigh3's
+    symmetrization and scaling, then its 18 rotations on A alone (the
+    sparse update, no V, no ordering); returns the scaled diagonal of the
+    last A (..., 3)."""
+    A, _ = _scaled(M)
+    a00, a11, a22, a01, a02, a12 = (A[..., i, j] for i, j in ((0, 0), (1, 1), (2, 2), (0, 1), (0, 2), (1, 2)))
+    for _ in range(EIGH3_SWEEPS):
+        c, s, _ = _rotation(a00, a11, a01)
+        a00, a11, a01, a02, a12 = _rotate_a(a00, a11, a01, a02, a12, c, s)
+        c, s, _ = _rotation(a00, a22, a02)
+        a00, a22, a02, a01, a12 = _rotate_a(a00, a22, a02, a01, a12, c, s)
+        c, s, _ = _rotation(a11, a22, a12)
+        a11, a22, a12, a01, a02 = _rotate_a(a11, a22, a12, a01, a02, c, s)
+    return torch.stack([a00, a11, a22], -1)
+
+
+def eigh3_chain(M: torch.Tensor) -> torch.Tensor:
+    """eigh3's latency floor: its 18 rotations' dependent chain on one
+    matrix in one thread (csrc/eigh.cu eigh3_chain_kernel) on a CUDA
+    (3, 3) M, its plain version on a CPU one. A measurement probe
+    (chip_smoke.py phase 2), on no path of the step."""
+    if M.shape != (3, 3) or M.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"expected a float32 or float64 (3, 3) matrix, got {M.dtype} {tuple(M.shape)}")
+    if not M.is_cuda:
+        return eigh3_chain_reference(M)
+    lib = _KERNEL.lib()
+    fn = lib.gcslam_eigh3_chain_f64 if M.dtype == torch.float64 else lib.gcslam_eigh3_chain_f32
+    m = M.contiguous()
+    out = torch.empty(3, dtype=M.dtype, device=M.device)
+    with torch.cuda.device(M.device):
+        err = fn(m.data_ptr(), out.data_ptr(), torch.cuda.current_stream(M.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"eigh3_chain launch failed: cudaError_t {err}")
+    return out
+
+
+def empty_launch(device: torch.device) -> None:
+    """One launch of csrc/eigh.cu's empty_kernel (a thread that does
+    nothing) on `device`'s current stream: the fixed cost of a launch of
+    this library (chip_smoke.py phase 2). A measurement probe."""
+    with torch.cuda.device(device):
+        err = _KERNEL.lib().gcslam_empty(torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"empty kernel launch failed: cudaError_t {err}")
+
+
 def sym_rounds(n: int) -> int:
     """eigh_sym's Jacobi rounds a call at n x n: EIGH_SYM_SWEEPS sweeps of
     n' - 1 rounds (n' = n rounded up to even)."""
@@ -269,20 +370,23 @@ def _check(M: torch.Tensor, n_min: int, n_max: int) -> None:
         raise ValueError("the kernel takes a CUDA tensor")
 
 
-def _launch(fn, counter: LaunchCounter, M: torch.Tensor, *args):
-    """(eigenvalues, eigenvectors) of the (..., n, n) batch M from one launch."""
+def _launch(fn, counter: LaunchCounter, M: torch.Tensor, *args, tails=None):
+    """The two outputs of one launch on the (..., n, n) batch M: by default
+    (eigenvalues (..., n), eigenvectors (..., n, n)), else of trailing
+    shapes `tails`. The outputs come from torch.empty and nothing waits on
+    the host, so a CUDA graph can capture the launch."""
     n = M.shape[-1]
     flat = M.reshape(-1, n, n).contiguous()
-    lam = torch.empty(flat.shape[:-1], dtype=M.dtype, device=M.device)
-    vec = torch.empty_like(flat)
+    tails = ((n,), (n, n)) if tails is None else tails
+    out = [torch.empty(flat.shape[:1] + t, dtype=M.dtype, device=M.device) for t in tails]
     if flat.shape[0]:
         stream = torch.cuda.current_stream(M.device).cuda_stream
         with torch.cuda.device(M.device):
-            err = fn(flat.data_ptr(), lam.data_ptr(), vec.data_ptr(), flat.shape[0], *args, stream)
+            err = fn(flat.data_ptr(), out[0].data_ptr(), out[1].data_ptr(), flat.shape[0], *args, stream)
         if err != 0:
             raise RuntimeError(f"eigh kernel launch failed: cudaError_t {err}")
         counter.count(tuple(flat.shape), M.dtype)
-    return lam.reshape(M.shape[:-1]), vec.reshape(M.shape)
+    return tuple(o.reshape(M.shape[:-2] + t) for o, t in zip(out, tails))
 
 
 @torch.library.custom_op("gcslam::eigh3", mutates_args=(), device_types="cpu")
@@ -296,6 +400,19 @@ def _eigh3_launch(M):
     lib = _KERNEL.lib()
     fn = lib.gcslam_eigh3_f64 if M.dtype == torch.float64 else lib.gcslam_eigh3_f32
     return _launch(fn, EIGH3_COUNTER, M)
+
+
+@torch.library.custom_op("gcslam::psd3", mutates_args=(), device_types="cpu")
+def _psd3_op(M: torch.Tensor, eps_psd: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    return psd3_reference(M, eps_psd)
+
+
+@_psd3_op.register_kernel("cuda")
+def _psd3_launch(M, eps_psd):
+    _check(M, 3, 3)
+    lib = _KERNEL.lib()
+    fn = lib.gcslam_psd3_f64 if M.dtype == torch.float64 else lib.gcslam_psd3_f32
+    return _launch(fn, PSD3_COUNTER, M, eps_psd, 10.0 * eps_psd, tails=((3, 3), (6,)))
 
 
 @torch.library.custom_op("gcslam::eigh_sym", mutates_args=(), device_types="cpu")
@@ -320,6 +437,13 @@ def _eigh3_vmap(info, in_dims, M):
     return _eigh3_op(M.movedim(in_dims[0], 0)), (0, 0)
 
 
+@_psd3_op.register_vmap
+def _psd3_vmap(info, in_dims, M, eps_psd):
+    if in_dims[0] is None:
+        return _psd3_op(M, eps_psd), (None, None)
+    return _psd3_op(M.movedim(in_dims[0], 0), eps_psd), (0, 0)
+
+
 @_eigh_sym_op.register_vmap
 def _eigh_sym_vmap(info, in_dims, M):
     if in_dims[0] is None:
@@ -332,6 +456,14 @@ def eigh3(M: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     of the symmetric part of M (..., 3, 3): the kernel on CUDA tensors, the
     plain chain on CPU tensors."""
     return _eigh3_op(M)
+
+
+def psd3(M: torch.Tensor, eps_psd: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """linalg.domain_projection_psd of M (..., 3, 3): (M_psd (..., 3, 3),
+    the certificate (..., 6) in linalg.PsdCert's field order). On CUDA
+    tensors one launch of the eigh3 kernel with the projection fused in;
+    on CPU tensors its plain version (psd_parts through eigh3_reference)."""
+    return _psd3_op(M, eps_psd)
 
 
 def eigh_sym(M: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -127,8 +127,11 @@ def pose_twist_kinematic_consistency(
     r_rot = dtheta_pred - dtheta_actual
 
     dt2 = dt * dt + eps_psd
-    St, _ = linalg.domain_projection_psd(dt2 * Sigma_v + Sigma_prev_pos, eps_psd)
-    Sr, _ = linalg.domain_projection_psd(dt2 * Sigma_omega + Sigma_prev_rot, eps_psd)
+    # St and Sr in one projection (on CUDA one launch)
+    S, _ = linalg.domain_projection_psd(
+        torch.stack(torch.broadcast_tensors(dt2 * Sigma_v + Sigma_prev_pos, dt2 * Sigma_omega + Sigma_prev_rot)),
+        eps_psd)
+    St, Sr = S.unbind(0)
     Lt, lift_t = linalg.spd_inverse_lifted(St, eps_lift)
     Lr, lift_r = linalg.spd_inverse_lifted(Sr, eps_lift)
 

@@ -29,6 +29,14 @@ from gcslam_torch.ops.se3 import mv
 from gcslam_torch.utils.dtypes import BELIEF_DTYPE
 
 
+def block_eigvals(L6: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Eigenvalues (ascending) of the symmetric parts of L6's translation
+    and rotation blocks (..., 6, 6), in one 3 x 3 eigendecomposition of
+    both (on CUDA one launch)."""
+    eig, _ = linalg.eigh_3x3(linalg.sym(torch.stack([L6[..., 0:3, 0:3], L6[..., 3:6, 3:6]], -3)))
+    return eig[..., 0, :], eig[..., 1, :]
+
+
 def primitive_pose_evidence(
     assoc,  # AssociationResult
     batch: MeasurementBatch,
@@ -144,8 +152,7 @@ def primitive_pose_evidence(
     delta_star, _ = linalg.spd_solve_lifted(
         linalg.sym(L6) + cfg.eps_lift * linalg.eye(6, L6), h6, cfg.eps_lift
     )
-    eig_t, _ = linalg.eigh_3x3(linalg.sym(L6[..., 0:3, 0:3]))
-    eig_r, _ = linalg.eigh_3x3(linalg.sym(L6[..., 3:6, 3:6]))
+    eig_t, eig_r = block_eigvals(L6)
     cap_t = 1.0 / (cfg.pose_scan_sigma_floor_m**2)
     cap_r = 1.0 / (cfg.pose_scan_sigma_floor_rad**2)
     s_t = torch.clamp(cap_t / torch.clamp(eig_t[..., -1:], min=cfg.eps_lift), max=1.0)

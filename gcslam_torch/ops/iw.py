@@ -169,6 +169,13 @@ def measurement_noise_mode(state: MeasurementNoiseIW, idx: int, eps_psd: float =
     return Sigma
 
 
+def measurement_noise_modes(state: MeasurementNoiseIW, eps_psd: float = C.EPS_PSD) -> torch.Tensor:
+    """The IW modes of every block (..., 3, 3, 3) in one PSD projection (on
+    CUDA one launch): measurement_noise_mode of each block, stacked."""
+    Sigma, _ = linalg.domain_projection_psd(state.Psi / (state.nu + 3.0 + 1.0)[..., None, None], eps_psd)
+    return Sigma
+
+
 def measurement_iw_apply(
     state: MeasurementNoiseIW,
     dPsi: torch.Tensor,

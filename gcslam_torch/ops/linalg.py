@@ -41,33 +41,21 @@ def sym(M: torch.Tensor) -> torch.Tensor:
     return 0.5 * (M + M.transpose(-1, -2))
 
 
-def _fro(M: torch.Tensor) -> torch.Tensor:
-    return torch.linalg.matrix_norm(M, ord="fro")
-
-
 def domain_projection_psd(
     M: torch.Tensor, eps_psd: float = C.EPS_PSD
 ) -> Tuple[torch.Tensor, PsdCert]:
     """Symmetrize + eigh + eigenvalue floor + reconstruct. Always applied.
-    The eigendecomposition is ops/eigh.eigh: the 3 x 3 Jacobi kernel, and
-    for other sizes the fixed-sweep kernel on CUDA, LAPACK on the CPU."""
-    M_sym = sym(M)
-    sym_delta = _fro(M_sym - M)
-    eigvals, eigvecs = eigh.eigh(M_sym)
-    vals = torch.clamp(eigvals, min=eps_psd)
-    M_psd = (eigvecs * vals[..., None, :]) @ eigvecs.transpose(-1, -2)
-    projection_delta = _fro(M_psd - M_sym)
-    eig_min = vals.amin(-1)
-    eig_max = vals.amax(-1)
-    cert = PsdCert(
-        projection_delta=projection_delta,
-        sym_delta=sym_delta,
-        eig_min=eig_min,
-        eig_max=eig_max,
-        cond=eig_max / eig_min,
-        near_null_count=torch.sum(vals < 10.0 * eps_psd, dim=-1).to(M.dtype),
-    )
-    return M_psd, cert
+    For 3 x 3 (the JAX package's eigh_3x3 route) the whole projection is
+    ops/eigh.psd3: on CUDA one kernel launch (the 3 x 3 Jacobi with the
+    floor, the reconstruction and the certificate fused), on the CPU its
+    plain composition. Other sizes take ops/eigh.eigh (the fixed-sweep
+    kernel on CUDA, LAPACK on the CPU) and the same epilogue in torch
+    (ops/eigh.psd_parts)."""
+    if M.shape[-2:] == (3, 3):
+        M_psd, cert = eigh.psd3(M, eps_psd)
+        return M_psd, PsdCert(*cert.unbind(-1))
+    M_psd, fields = eigh.psd_parts(M, eps_psd, eigh.eigh)
+    return M_psd, PsdCert(*fields)
 
 
 def _lift_eps(L: torch.Tensor, eps_lift: float) -> torch.Tensor:
