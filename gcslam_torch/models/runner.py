@@ -29,6 +29,12 @@ goes through the transfer ledger (utils/profiling.COUNTERS), as the JAX
 package's runners do: run_bag and run_scan commit the whole bag in one
 call and read nothing back; run_stream commits scan by scan, run_chunked
 all full windows at once and the remainder scan by scan.
+
+What the host does is timed in spans (utils/profiling.span): run_bag and
+run_scan's staging of the bag (run_bag.start, run_bag.stack,
+run_bag.to_device), and each scan's staging and replay (step.launch) and
+output copies (step.outputs). On the device, each CompiledStep's stage
+clock times the step's stages at every replay (stage_reading()).
 """
 
 from __future__ import annotations
@@ -52,7 +58,7 @@ from gcslam_torch.ops.certs import TRIGGERS
 from gcslam_torch.ops.cuda_build import LaunchCounter
 from gcslam_torch.utils.device import resolve_device
 from gcslam_torch.utils.dtypes import BELIEF_DTYPE
-from gcslam_torch.utils.profiling import COUNTERS
+from gcslam_torch.utils.profiling import COUNTERS, StageClock, StageReading, span, stages
 from gcslam_torch.utils.tree import tree_leaves, tree_rebuild
 
 MAX_GRAPHS = 2  # compiled steps kept; the least recently used one is freed first
@@ -105,11 +111,19 @@ class CompiledStep:
     counter (ops/cuda_build.LaunchCounter) moves at capture, where nothing
     runs: the capture's counts are taken back out and added at every
     replay. capture=False runs the same body without a graph (the CPU
-    test of the compiled path)."""
+    test of the compiled path).
 
-    def __init__(self, config: PipelineConfig, state: StepState, batch: ScanBatch, capture: bool = True):
+    `stage_clock` (a utils/profiling.StageClock, made when the argument is
+    true) times the body's stages at every step: its stamps are captured
+    into the graph, and its totals stay on the device until
+    stage_clock.read(). stage_clock=False captures the body without the
+    stamps (its stage ranges stay), to price the clock."""
+
+    def __init__(self, config: PipelineConfig, state: StepState, batch: ScanBatch, capture: bool = True,
+                 stage_clock: bool = True):
         self.config = config
         self.capture = capture
+        self.stage_clock = StageClock(state.hyp_weights.device) if stage_clock else None
         self.state = tree_rebuild(state, [x.clone() for x in tree_leaves(state)])
         self.batch = tree_rebuild(batch, [x.clone() for x in tree_leaves(batch)])
         self.graph = None
@@ -122,25 +136,32 @@ class CompiledStep:
         _copy_into(tree_leaves(self.state), tree_leaves(state))
 
     def _body(self) -> StepOutput:
-        new_state, out = scan_step(self.state, self.batch, self.config)
-        bases = {x.untyped_storage().data_ptr() for x in tree_leaves(self.state)}
-        out = tree_rebuild(out, [x.clone() if x.untyped_storage().data_ptr() in bases else x
-                                 for x in tree_leaves(out)])
-        _write_state(self.state, new_state)
+        clock = self.stage_clock
+        new_state, out = scan_step(self.state, self.batch, self.config, clock=clock)
+        with stages(clock) as mark:
+            mark("write_state")
+            bases = {x.untyped_storage().data_ptr() for x in tree_leaves(self.state)}
+            out = tree_rebuild(out, [x.clone() if x.untyped_storage().data_ptr() in bases else x
+                                     for x in tree_leaves(out)])
+            _write_state(self.state, new_state)
+            if clock is not None:
+                clock.end_step()
         return out
 
     def step(self, batch: ScanBatch) -> StepOutput:
         """One scan from the state buffers into them; the output's tensors
-        are overwritten by the next step."""
+        are overwritten by the next step. After the first, each step is the
+        host span step.launch."""
         if self.capture and self.graph is None:
             return self._first_step(batch)
-        _copy_into(tree_leaves(self.batch), tree_leaves(batch))
-        if not self.capture:
-            return self._body()
-        self.graph.replay()
-        for c, snap in zip(LaunchCounter.instances, self.counts):
-            c.add(snap)
-        self.replays += 1
+        with span("step.launch"):
+            _copy_into(tree_leaves(self.batch), tree_leaves(batch))
+            if not self.capture:
+                return self._body()
+            self.graph.replay()
+            for c, snap in zip(LaunchCounter.instances, self.counts):
+                c.add(snap)
+            self.replays += 1
         return self.out
 
     def _first_step(self, batch: ScanBatch) -> StepOutput:
@@ -200,6 +221,14 @@ def compiled_steps() -> List[CompiledStep]:
     return list(_GRAPHS.values())
 
 
+def stage_reading() -> Optional[StageReading]:
+    """The stage clocks of the cached CompiledSteps, summed (a copy and a
+    sync each); None where no step has ended on one."""
+    readings = [s.stage_clock.read() for s in _GRAPHS.values() if s.stage_clock is not None]
+    total = sum(readings[1:], readings[0]) if readings else None
+    return total if total is not None and total.scans else None
+
+
 class StepLoop:
     """scan_step over the n scans of one runner call, picked by the state's
     device: the eager step on the CPU, replays of the cached CompiledStep
@@ -224,13 +253,16 @@ class StepLoop:
             return self.state, out
         if self.compiled is None:
             self.compiled = compiled_step(self.config, self.state, batch)
+            if self.compiled.stage_clock is not None:
+                self.compiled.stage_clock.begin_call()
         out = self.compiled.step(batch)
-        leaves = tree_leaves(out)
-        if self.stacked is None:
-            self.stacked = [x.new_empty((self.n,) + x.shape) for x in leaves]
-        rows = [x[len(self.outs)] for x in self.stacked]
-        _copy_into(rows, leaves)
-        self.outs.append(tree_rebuild(out, rows))
+        with span("step.outputs"):
+            leaves = tree_leaves(out)
+            if self.stacked is None:
+                self.stacked = [x.new_empty((self.n,) + x.shape) for x in leaves]
+            rows = [x[len(self.outs)] for x in self.stacked]
+            _copy_into(rows, leaves)
+            self.outs.append(tree_rebuild(out, rows))
         return self.compiled.state, self.outs[-1]
 
     def result(self) -> Tuple[StepState, StepOutput]:
@@ -238,6 +270,8 @@ class StepLoop:
         the stacked outputs."""
         if not self.use_compiled:
             return self.state, stack_outputs(self.outs)
+        if self.compiled.stage_clock is not None:
+            self.compiled.stage_clock.end_call()
         state = self.compiled.state
         return (tree_rebuild(state, [x.clone() for x in tree_leaves(state)]),
                 tree_rebuild(self.outs[0], self.stacked))
@@ -316,9 +350,15 @@ def run_bag(
 ) -> Tuple[StepState, StepOutput]:
     """Replay a bag scan by scan on `device` (default: the CUDA card): the
     batches are stacked where they lie and committed to the device in one
-    ledger call; a given state is moved there."""
-    state, device = _start(config, state, device)
-    return _replay(state, COUNTERS.to_device(stack_scan_batches(batches), device), config)
+    ledger call; a given state is moved there. Host spans run_bag.start,
+    run_bag.stack and run_bag.to_device."""
+    with span("run_bag.start"):
+        state, device = _start(config, state, device)
+    with span("run_bag.stack"):
+        stacked = stack_scan_batches(batches)
+    with span("run_bag.to_device"):
+        stacked = COUNTERS.to_device(stacked, device)
+    return _replay(state, stacked, config)
 
 
 def run_scan(
@@ -329,9 +369,13 @@ def run_scan(
 ) -> Tuple[StepState, StepOutput]:
     """Replay a ScanBatch stacked along a leading time axis (the JAX
     package's whole-bag lax.scan), committed in one ledger call; state0
-    None starts from init_state."""
-    state, device = _start(config, state0, device)
-    return _replay(state, COUNTERS.to_device(stacked_batch, device), config)
+    None starts from init_state. Host spans run_bag.start and
+    run_bag.to_device, as in run_bag."""
+    with span("run_bag.start"):
+        state, device = _start(config, state0, device)
+    with span("run_bag.to_device"):
+        stacked = COUNTERS.to_device(stacked_batch, device)
+    return _replay(state, stacked, config)
 
 
 class DeadEndMonitor:

@@ -38,7 +38,7 @@ a "map" axis the atlas functions read and write a tile-sharded atlas
 from __future__ import annotations
 
 from functools import lru_cache
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -58,6 +58,7 @@ from gcslam_torch.ops.se3 import mv
 from gcslam_torch.ops.windows import smooth_window_weights
 from gcslam_torch.utils.device import resolve_device
 from gcslam_torch.utils.dtypes import BELIEF_DTYPE
+from gcslam_torch.utils.profiling import StageClock, stages
 from gcslam_torch.utils.tree import tree_leaves, tree_rebuild
 
 
@@ -568,13 +569,24 @@ def _gather_hypotheses(hyp_out: HypOutputs, hyp_weights: torch.Tensor, hyp, per_
 
 
 def scan_step(state: StepState, batch: ScanBatch, config: PipelineConfig,
-              shard=None) -> Tuple[StepState, StepOutput]:
-    """One full scan: batched hypotheses -> barycenter -> IW apply -> map update."""
+              shard=None, clock: Optional[StageClock] = None) -> Tuple[StepState, StepOutput]:
+    """One full scan: batched hypotheses -> barycenter -> IW apply -> map update.
+
+    Its stages are marked (utils/profiling.stages): each is the
+    torch.profiler range gcslam.stage.<name> and, given `clock` (the
+    compiled step's StageClock), a stamp of its start on the clock."""
+    with stages(clock) as mark:
+        return _scan_step(state, batch, config, shard, mark)
+
+
+def _scan_step(state: StepState, batch: ScanBatch, config: PipelineConfig, shard,
+               mark) -> Tuple[StepState, StepOutput]:
     cfg = config
     dev = state.hyp_weights.device
     hyp = None if shard is None else shard.hyp
     map_shard = None if shard is None else shard.map
 
+    mark("scrub")
     # sensor-boundary non-finite check on the raw batch, then scrub
     batch_finite = torch.ones((), dtype=torch.bool, device=dev)
     for x in batch:
@@ -585,6 +597,7 @@ def scan_step(state: StepState, batch: ScanBatch, config: PipelineConfig,
     Q = iw.process_noise_to_Q(state.process_iw, cfg.eps_psd)
     Sigma_g, Sigma_a, Sigma_l = iw.measurement_noise_modes(state.meas_iw, cfg.eps_psd).unbind(-3)
 
+    mark("map_view")
     atlas = state.atlas
     map_branch = None
     if cfg.with_map:
@@ -599,9 +612,11 @@ def scan_step(state: StepState, batch: ScanBatch, config: PipelineConfig,
         view = atlas_mod.extract_view(atlas, active_slots, torch.ones_like(active_slots, dtype=torch.bool), cfg,
                                       map_shard)
         sensor_var = linalg.trace(Sigma_l) / 3.0
+        mark("extraction")
         shared = None
         if cfg.map_share_extraction:
             shared, z_center = _shared_extraction_inputs(b0, batch, view, cfg, sensor_var)
+        mark("map_gn")
         if cfg.map_gn_shared:
             # one GN chain per scan from hypothesis 0's predicted pose
             mb_s, sl_s, sc_s = shared
@@ -610,6 +625,7 @@ def scan_step(state: StepState, batch: ScanBatch, config: PipelineConfig,
         else:
             map_branch = atlas_mod.make_map_evidence_fn(view, cfg, batch.scan_seq, sensor_var, shared)
 
+    mark("hypotheses")
     if cfg.hyp_diversify and cfg.k_hyp == len(C.HYP_BETA_SCALE):
         beta_scales = _constant("HYP_BETA_SCALE", dev)
         map_scales = _constant("HYP_MAP_EVIDENCE_SCALE", dev)
@@ -627,6 +643,7 @@ def scan_step(state: StepState, batch: ScanBatch, config: PipelineConfig,
         hyp_out, prev_weights = _gather_hypotheses(hyp_out, state.hyp_weights, hyp,
                                                    cfg.with_map and not cfg.map_gn_shared)
 
+    mark("barycenter_iw")
     # per-scan hypothesis weight update from the evidence fit
     if cfg.hyp_diversify:
         ll = -C.HYP_WEIGHT_LL_GAIN * hyp_out.cert_agg.nll_per_ess
@@ -649,6 +666,7 @@ def scan_step(state: StepState, batch: ScanBatch, config: PipelineConfig,
     process_iw = iw.process_iw_apply(state.process_iw, w_process * dPsi_proc, w_process * dnu_proc, cfg.eps_psd)
     meas_iw = iw.measurement_iw_apply(state.meas_iw, dPsi_meas, dnu_meas, cfg.eps_psd)
 
+    mark("map_update")
     f = BELIEF_DTYPE
     if cfg.with_map:
         # the map update follows hypothesis 0
@@ -669,6 +687,8 @@ def scan_step(state: StepState, batch: ScanBatch, config: PipelineConfig,
             ins_mu=torch.zeros(0, 3, dtype=torch.float32, device=dev),
             ins_w=torch.zeros(0, dtype=torch.float32, device=dev),
         )
+
+    mark("tape")
 
     def wmean(x):
         return torch.dot(w, x.expand_as(w))

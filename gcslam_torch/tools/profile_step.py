@@ -16,6 +16,13 @@ counterpart:
     (models/runner.CompiledStep, what the runners run there): its first
     step (eager, then the capture) and capture seconds, and the timing of
     the replays after it; the JAX tool's step is its jitted program;
+  - graph.stages (on the card): the compiled step's stage clock
+    (utils/profiling.StageClock) over one run_bag of the timed scans
+    replayed again back to back, as the runners replay them (the timed
+    replays each wait for the card): the device ms a scan in each stage of
+    the step, and the share of the call's device span spent between steps
+    (the scans' staging and the replays' launches). This is the clock's
+    reader outside the benchmark;
   - top_kernels: the 15 most-launched kernel names in one profiled step
     (utils/cuda_profile), or on the CPU the 15 most-dispatched aten ops:
     the JAX tool's hlo_top_ops;
@@ -108,6 +115,15 @@ def main(argv=None) -> dict:
                     _, gout = loop.step(b)
         graph = {"first_scan_s": round(first_s, 3), "capture_s": round(loop.compiled.capture_s, 3),
                  "timing": gtimer.summary(), "finite": bool(np.all(np.isfinite(COUNTERS.to_host(gout.pose))))}
+        if batches[4:]:
+            clock = loop.compiled.stage_clock
+            clock.reset()
+            runner.run_bag(batches[4:], cfg, state=loop.result()[0], device=device)
+            reading = clock.read()
+            graph["stages"] = {"ms_per_scan": {k: round(v, 4) for k, v in reading.ms_per_scan.items()},
+                               "between_steps_share": round(reading.between_share, 5),
+                               "between_ms_per_scan": round(reading.between_ms_per_scan, 4),
+                               "scans": reading.scans}
 
     report = {
         "device": device.type,

@@ -12,7 +12,9 @@ per scan:
     calls;
   - device_kernels_per_scan: the kernels the device ran (copies and sets
     left out);
-  - device_busy_ms_per_scan: the device's summed kernel, copy and set time;
+  - device_busy_ms_per_scan: the union of the device's kernel, copy and
+    set intervals (time in which it ran anything; overlapping records
+    count once);
   - profiled_span_ms_per_scan: the host-clock span of the profiled call
     (the profiler slows the host, so this is not the timed ms/scan);
   - device_busy_share: device busy over the span.
@@ -84,6 +86,17 @@ def kernel_counts(prof) -> collections.Counter:
                                if not e.name().startswith(NOT_KERNELS))
 
 
+def union_ns(intervals) -> int:
+    """The length of the union of (start, end) intervals."""
+    total, reach = 0, None
+    for s, e in sorted(intervals):
+        if reach is None or s > reach:
+            total, reach = total + e - s, e
+        elif e > reach:
+            total, reach = total + e - reach, e
+    return total
+
+
 def record(events, span_ms: float, n: int) -> dict:
     """profile_record's fields from the raw events of a trace of n scans."""
     from torch.autograd import DeviceType
@@ -92,7 +105,7 @@ def record(events, span_ms: float, n: int) -> dict:
     graph_launches = sum(1 for e in events if e.device_type() == DeviceType.CPU and e.name().startswith(GRAPH_LAUNCHES))
     dev = device_activity(events)
     kernels = sum(1 for e in dev if not e.name().startswith(NOT_KERNELS))
-    busy_us = sum(e.duration_ns() for e in dev) / 1e3
+    busy_us = union_ns([(e.start_ns(), e.start_ns() + e.duration_ns()) for e in dev]) / 1e3
     return dict(launch_calls_per_scan=launch_calls / n if launch_calls else None,
                 graph_launches_per_scan=graph_launches / n,
                 device_kernels_per_scan=kernels / n if kernels else None,

@@ -859,3 +859,47 @@ def test_compiled_step_replays_equal_the_eager_step(cuda):
     assert step.replays == 11 and sinkhorn.COUNTER.launches == cfg.map_icp_iters * 6
     assert torch.equal(out_2.pose, out_g.pose)
     runner.release_graphs()
+
+
+def test_stage_clock_in_the_graph(cuda):
+    """The compiled step with its stage clock against the same step captured
+    without it: poses, tapes and state bit-equal at every replay; the clock
+    counts every replay, and its stages sum to 0.9-1.0 of the CUDA events
+    around the replays; a run_bag from a state on the card (the replay
+    path) makes no implicit host sync."""
+    from gcslam_torch.models.scan_step import init_state
+    from gcslam_torch.utils.cuda_profile import implicit_syncs
+    from gcslam_torch.utils.profiling import STAGES
+    from gcslam_torch.utils.tree import tree_leaves
+
+    cfg = PipelineConfig(**SMALL)
+    batches = generate(SyntheticConfig(n_scans=8, n_points=1024), device=cuda).batches
+    runner.release_graphs()
+    state0 = init_state(cfg, device=cuda)
+    outs, elapsed_ms = {}, None
+    with torch.no_grad():
+        for with_clock in (True, False):
+            step = runner.CompiledStep(cfg, state0, batches[0], stage_clock=with_clock)
+            step.step(batches[0])  # eager, then the capture
+            if with_clock:
+                step.stage_clock.reset()
+            t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0.record()
+            outs[with_clock] = [[x.clone() for x in tree_leaves(step.step(b))] for b in batches[1:]]
+            t1.record()
+            outs[with_clock].append(tree_leaves(step.state))
+            torch.cuda.synchronize()
+            if with_clock:
+                reading, replays, elapsed_ms = step.stage_clock.read(), step.replays, t0.elapsed_time(t1)
+            else:
+                assert step.stage_clock is None
+    for got, want in zip(outs[True], outs[False]):
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert reading.scans == replays == len(batches) - 1 and list(reading.stage_ns) == list(STAGES)
+    assert all(v > 0 for v in reading.stage_ns.values()), reading
+    stages_ms = sum(reading.stage_ns.values()) / 1e6
+    assert 0.9 * elapsed_ms <= stages_ms <= elapsed_ms, (stages_ms, elapsed_ms)
+    state, _ = runner.run_bag(batches, cfg, device=cuda)  # the cached graph's capture
+    assert not implicit_syncs(lambda: runner.run_bag(batches, cfg, state=state, device=cuda))
+    assert runner.stage_reading().scans == (len(batches) - 1) + len(batches)
+    runner.release_graphs()

@@ -11,10 +11,15 @@
     the run's stacked outputs), run without capture on the CPU, gives
     run_bag's eager poses, tape and final state bit for bit;
   - the graph cache keeps MAX_GRAPHS steps, least recently used out first;
-  - a launch counter's capture counts move to every replay.
+  - a launch counter's capture counts move to every replay;
+  - the stage clock (host stamps on the CPU) times the body's nine stages
+    and changes no output; the host spans count each scan and call; the
+    stage ranges show in a CPU profiler trace, and a profiled call leaves
+    the clock's and the spans' totals as they were.
 """
 
 import collections
+import time
 import traceback
 
 import pytest
@@ -134,3 +139,96 @@ def test_launch_counter_moves_capture_counts_to_replays():
     assert c.launches == 7 and c.by_instance == {("float64", (1, 1024, 8)): 1, ("float32", (2, 22, 22)): 6}
     assert c.shapes == {(1, 1024, 8), (2, 22, 22)}
     LaunchCounter.instances.remove(c)
+
+
+def test_stage_clock_times_the_nine_stages_and_changes_no_output(world):
+    """The compiled body with its stage clock (host stamps on the CPU): the
+    nine stages in order, each > 0, summing to the step loop's host time
+    within 10 %; poses, tapes and state bit-equal to the body without the
+    clock and to the eager run_bag; the host spans count one step.launch and
+    one step.outputs a scan, and one of each run_bag span a call."""
+    from gcslam_torch.utils.profiling import SPANS, STAGES
+
+    cfg = PipelineConfig(**SMALL)
+    batches = world.batches[:3]
+    SPANS.reset()
+    eager = runner.run_bag(batches, cfg, device="cpu")
+    assert dict(SPANS.calls) == {"run_bag.start": 1, "run_bag.stack": 1, "run_bag.to_device": 1}
+    stacked = stack_scan_batches(batches)
+    results, host_ns = {}, 0
+    for with_clock in (True, False):
+        state0 = init_state(cfg, device="cpu")
+        loop = runner.StepLoop(cfg, state0, 3)
+        loop.use_compiled = True
+        loop.compiled = runner.CompiledStep(cfg, state0, batches[0], capture=False, stage_clock=with_clock)
+        with torch.no_grad():
+            for i in range(3):
+                t0 = time.perf_counter_ns()
+                loop.step(runner._scan_at(stacked, i))
+                host_ns += (time.perf_counter_ns() - t0) * with_clock
+        results[with_clock] = loop.result()
+        if with_clock:
+            reading = loop.compiled.stage_clock.read()
+        else:
+            assert loop.compiled.stage_clock is None
+    assert SPANS.calls["step.launch"] == SPANS.calls["step.outputs"] == 6
+    assert list(reading.ms_per_scan) == list(STAGES) and reading.scans == 3
+    assert all(v > 0 for v in reading.stage_ns.values()), reading
+    assert 0.9 * host_ns <= sum(reading.stage_ns.values()) <= host_ns
+    assert 0 < reading.between_share < 0.1  # two gaps between three steps: the output copy and the staging
+    for a, b, c in zip(tree_leaves(results[True]), tree_leaves(results[False]), tree_leaves(eager)):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+def test_stage_clock_arithmetic():
+    """The stamp kernel's arithmetic on the host: a stage the step skips
+    reads 0, the time before a call's first step is not between steps, and
+    the time between two steps of one call is."""
+    from gcslam_torch.utils.profiling import STAGES, StageClock, _accumulate
+
+    clock = StageClock("cpu")
+    n, c = len(STAGES), clock._host
+    for mark, now in [(0, 100), (1, 110), (4, 150), (n - 1, 190), (n, 200), (0, 230), (n - 1, 260), (n, 275)]:
+        _accumulate(c, mark, now)
+    got = clock.read()
+    assert got.stage_ns == dict(zip(STAGES, [10 + 30, 40, 0, 0, 40, 0, 0, 0, 10 + 15]))
+    assert got.scans == 2 and got.between_ns == 30 and got.between_share == 30 / (100 + 45 + 30)
+    clock.begin_call()
+    _accumulate(c, 0, 1000)
+    assert clock.read().between_ns == 30
+    clock.reset()
+    assert clock.read() == type(got)(dict.fromkeys(STAGES, 0), 0, 0)
+
+
+def test_stage_ranges_in_a_cpu_trace(world):
+    """One step of the compiled body under torch.profiler on the CPU: the
+    nine gcslam.stage.<name> ranges in order, inside the host span
+    gcslam.step.launch; the profiled call leaves the stage clock and the
+    host spans' totals as they were (they count untraced runs)."""
+    from gcslam_torch.utils import cuda_profile
+    from gcslam_torch.utils.profiling import SPANS, STAGES
+
+    cfg = PipelineConfig(**SMALL)
+    state0 = init_state(cfg, device="cpu")
+    loop = runner.StepLoop(cfg, state0, 2)
+    loop.use_compiled = True
+    loop.compiled = runner.CompiledStep(cfg, state0, world.batches[0], capture=False)
+    clock = loop.compiled.stage_clock
+    with torch.no_grad():
+        loop.step(world.batches[0])
+        before, calls = clock.read(), dict(SPANS.calls)
+
+        def profiled_call():
+            clock.begin_call()
+            loop.step(world.batches[1])
+            loop.result()
+
+        prof, _ = cuda_profile.profile(profiled_call, ("cpu",))
+    assert before.scans == 1 and clock.read() == before and dict(SPANS.calls) == calls
+    events = sorted(cuda_profile.raw_events(prof), key=lambda e: e.start_ns())
+    ranges = [e for e in events if e.name().startswith("gcslam.")]
+    launch = [e for e in ranges if e.name() == "gcslam.step.launch"]
+    stages = [e for e in ranges if e.name().startswith("gcslam.stage.")]
+    assert [e.name() for e in stages] == [f"gcslam.stage.{s}" for s in STAGES] and len(launch) == 1
+    lo, hi = launch[0].start_ns(), launch[0].start_ns() + launch[0].duration_ns()
+    assert all(lo <= e.start_ns() and e.start_ns() + e.duration_ns() <= hi for e in stages)

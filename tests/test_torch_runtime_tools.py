@@ -176,19 +176,20 @@ def test_profile_record_counts_the_raw_trace():
     """profile_record's fields from a trace's raw events: the host's launch
     calls (a cluster launch among them) and graph launches, the device's
     kernels (copies and sets left out, and no record_function annotation)
-    and its busy time."""
+    and its busy time, the union of its records (the copy that overlaps a
+    kernel counts once)."""
     from gcslam_torch.utils import cuda_profile
 
     events = [_Event("cudaLaunchKernel", False, 0, 5, 1), _Event("cudaLaunchKernelExC", False, 10, 5, 2),
               _Event("cudaMemcpyAsync", False, 20, 5, 3), _Event("aten::add", False, 0, 50, 4),
               _Event("cudaGraphLaunch", False, 30, 5, 6),
               _Event("void k<float>()", True, 100, 2000, 1, 4), _Event("sinkhorn_kernel<double, 8>", True, 3000, 6000, 2),
-              _Event("Memcpy DtoD (Device -> Device)", True, 9000, 1000, 3),
+              _Event("Memcpy DtoD (Device -> Device)", True, 8000, 1000, 3),
               _Event(f"{kernel_census.MARK}0", True, 100, 9000, 5)]
     got = cuda_profile.record(events, span_ms=20.0, n=2)
     assert got == dict(launch_calls_per_scan=1.0, graph_launches_per_scan=0.5, device_kernels_per_scan=1.0,
-                       device_busy_ms_per_scan=0.0045, profiled_span_ms_per_scan=10.0,
-                       device_busy_share=0.009 / 20.0)
+                       device_busy_ms_per_scan=0.004, profiled_span_ms_per_scan=10.0,
+                       device_busy_share=0.008 / 20.0)
 
 
 def test_kernel_census_family():
