@@ -7,11 +7,11 @@
 Phases, in order; any failure exits non-zero before the result line:
   1. device: a CUDA card is required (no CPU fallback); prints its name and
      `nvidia-smi` name + power limit;
-  2. kernels: builds csrc/sinkhorn.cu, csrc/raster.cu and csrc/eigh.cu with
-     nvcc (one process each, started together) and holds each kernel against its
-     plain PyTorch version on the card at the main paths' shapes (the
-     Sinkhorn at B = 1, 2, 4 and 8 problems of 1024 rows among them, the
-     sweep's): Sinkhorn
+  2. kernels: builds csrc/sinkhorn.cu, csrc/raster.cu, csrc/eigh.cu and
+     csrc/se3.cu with nvcc (one process each, started together) and holds
+     each kernel against its plain PyTorch version on the card at the main
+     paths' shapes (the Sinkhorn at B = 1, 2, 4 and 8 problems of 1024 rows
+     among them, the sweep's): Sinkhorn
      in f32 and f64 with a third of the rows at zero mass, the launcher's
      cluster size per shape (checked against ops/sinkhorn.cluster_layout),
      two launches bit-equal; the splat rasterizer at P = 4096 on 240 x 320
@@ -44,7 +44,19 @@ Phases, in order; any failure exits non-zero before the result line:
      last phase, the same check on every other eigh
      instance a path's counted run launched (the camera frontend's, the
      sweeps' folded batches, the f32 child's, the mesh ranks'), on that
-     path's first input of it;
+     path's first input of it; the Lie-group kernel (csrc/se3.cu, one
+     launch a call of ops/se3's maps and of linalg.inv3x3) at every instance
+     (op, dtype, batch shape) of an eager flagship scan, on the scan's own
+     operands, in f64 and f32, against its plain version (skew and inv3x3
+     bit-equal, the rest within 2e-15 (f64) / 1e-6 (f32) of the output's
+     largest entry), two launches bit-equal, timed by CUDA events and by its
+     device time, beside the plain version's events, kernel count and
+     device time and the instance's bound; after the last phase, the same
+     check on every other Lie-group instance the main paths launched (the
+     map render's, the camera frontend's, the sweeps' folded batches, the
+     f32 child's, the mesh ranks'), on that path's first operands of it;
+     the kernels line counts the main paths' launches of each instance,
+     the f32 child's and the mesh ranks' among them;
   3. flagship path: runner.run_bag over 50 synthetic scans of 8192 points
      at PipelineConfig() defaults; finite poses, ATE gate of bench.py
      (<= 0.30 m, <= 4.0 deg, initial-pose alignment), and exactly
@@ -357,6 +369,7 @@ MESH_TIMEOUT_S = 600
 # BENCH_r05.json), in a child process with GCSLAM_BELIEF_DTYPE=float32
 F32_ENV = {"GCSLAM_BELIEF_DTYPE": "float32"}
 F32_EIGH_INPUTS = os.path.join(OUT_DIR, "f32_eigh_inputs.npz")
+F32_LIE_INPUTS = os.path.join(OUT_DIR, "f32_lie_inputs.npz")
 BAG_ARTIFACTS = ["runtime_manifest.json", "trajectory.tum", "ground_truth.tum", "diagnostics.npz",
                  "splat_export.npz", "metrics.json", "metrics.csv", "dashboard.html", "map_events.jsonl",
                  "audit.json"]
@@ -400,6 +413,18 @@ DEVICE_TRACE_LOG = []  # attempts and margins of every device_ms of this run
 CHAIN_FLOOR_MS = {}  # chain floors: eigh_sym's by (dtype, n), eigh3's by (dtype, "eigh3", shape); "empty"
 CHAIN_BLOCK_SEED = 0  # the chain floor's 4 x 4 block
 EIGH_RANDOM_SEED = 12  # phase 2's random-spectrum eigh_sym inputs
+# the Lie-group kernel (csrc/se3.cu, ops/se3.launch): outputs that pass through
+# a 3 x 3 product or a reduction of the plain version (cuBLAS, torch's sums,
+# norms and softmax) within these of the output's largest entry; skew and
+# inv3x3 are elementwise and bit-equal (tests/test_torch_cuda.py LIE_RTOL)
+LIE_RTOL = {"float64": 2e-15, "float32": 1e-6}
+LIE_ELEMENTWISE = {"skew", "inv3x3"}
+# operations an element, counted from csrc/se3.cu (a sin, cos, exp, atan2,
+# sqrt or division counts one): a 3 x 3 product 45, a product with a
+# vector 15, so3_exp 95, so3_log 110, se3_V / se3_V_inv 95
+LIE_FLOPS = {"so3_exp": 95, "so3_log": 110, "se3_exp": 110, "se3_log": 315, "se3_compose": 363,
+             "se3_inverse": 223, "se3_relative": 586, "skew": 3, "inv3x3": 95}
+LIE_REPLACES = "gcslam_tpu/ops/se3.py, gcslam_tpu/ops/linalg.py inv3x3 (jnp, XLA-fused)"
 # phase 18, the compiled step
 N_SYNC_SCANS = 3  # eager flagship scans under set_sync_debug_mode("error")
 N_TIMING_PAIRS = 3  # interleaved (eager, graph) timings
@@ -471,6 +496,8 @@ def ptxas_summary(log: str):
     memory."""
     import re
 
+    from gcslam_torch.ops.se3 import OPS as LIE_OPS
+
     out, name, frame, spill = [], None, "", ""
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -478,7 +505,9 @@ def ptxas_summary(log: str):
             t = re.search(r"sinkhorn_kernelI([fd])Li(\d+)E", m.group(1))
             e = re.search(r"(eigh3_kernel|eigh3_chain_kernel|eigh_sym_kernel|eigh_sym_chain_kernel)I([fd])"
                           r"(?:L([ib])(\d+)E)?E", m.group(1))
-            name = (f"sinkhorn_kernel<{'float' if t.group(1) == 'f' else 'double'}, KMAX={t.group(2)}>" if t
+            lie = re.search(r"lie_kernelI([fd])Li(\d+)E", m.group(1))
+            name = (f"lie_kernel<{'float' if lie.group(1) == 'f' else 'double'}, {list(LIE_OPS)[int(lie.group(2))]}>"
+                    if lie else f"sinkhorn_kernel<{'float' if t.group(1) == 'f' else 'double'}, KMAX={t.group(2)}>" if t
                     else (f"{e.group(1)}<{'float' if e.group(2) == 'f' else 'double'}"
                           + ("" if e.group(3) is None else f", psd={e.group(4) == '1'}" if e.group(3) == "b"
                              else f", n={e.group(4) if e.group(4) != '0' else 'any'}")
@@ -551,14 +580,16 @@ def device_ms(fn, kernel: str, n: int = 20, label: str = None):
 
 def library_device_ms(fn, n: int, label: str) -> float:
     """The device time per call of a library call (ms): the sum of the
-    kernels (copies and sets left out) in device_trace of n calls."""
+    kernels (copies and sets left out) in device_trace of n calls, traced
+    again up to DEVICE_TRACE_TRIES times while the trace holds none."""
     from gcslam_torch.utils import cuda_profile
 
-    events, _ = device_trace(fn, n)
-    kernels = [e for e in events if not e.name().startswith(cuda_profile.NOT_KERNELS)]
-    if not kernels:
-        fail(f"{label}: no kernel in a device trace of {n} calls")
-    return sum(e.duration_ns() for e in kernels) / n / 1e6
+    for _ in range(DEVICE_TRACE_TRIES):
+        events, _ = device_trace(fn, n)
+        kernels = [e for e in events if not e.name().startswith(cuda_profile.NOT_KERNELS)]
+        if kernels:
+            return sum(e.duration_ns() for e in kernels) / n / 1e6
+    fail(f"{label}: no kernel in {DEVICE_TRACE_TRIES} device traces of {n} calls")
 
 
 def fmt_us(ms) -> str:
@@ -574,14 +605,14 @@ def bound(n_bytes: float, n_ops: float, peak_ops: float):
 def phase_build():
     """The kernels' nvcc builds and the bag decoder's g++ build at once."""
     from gcslam_torch.frontend import native
-    from gcslam_torch.ops import eigh, sinkhorn
+    from gcslam_torch.ops import eigh, se3, sinkhorn
     from gcslam_torch.outputs import raster
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=4) as pool:
-        paths = list(pool.map(lambda m: m.build(), (sinkhorn, raster, eigh, native)))
+    with ThreadPoolExecutor(max_workers=5) as pool:
+        paths = list(pool.map(lambda m: m.build(), (sinkhorn, raster, eigh, se3, native)))
     print(f"built {', '.join(p.name for p in paths)} in {time.perf_counter() - t0:.1f} s (in parallel)")
-    for mod in (sinkhorn, raster, eigh):
+    for mod in (sinkhorn, raster, eigh, se3):
         for line in ptxas_summary(mod.build_log()):
             print("  ptxas:", line)
 
@@ -1064,6 +1095,215 @@ def check_projection_kernels(M, eps) -> int:
 def check_eigen(key, M, eps=None, inputs: str = ""):
     """check_psd3 or check_eigh of the instance `key` on M."""
     return check_psd3(M, eps, inputs) if key[0] == "psd3" else check_eigh(key[0], M, inputs)
+
+
+class LieInputs:
+    """While installed, the first operands (and eps) of every instance of
+    the Lie-group kernel (op, dtype, batch shape) launched outside a CUDA
+    graph capture, cloned as the call passed them (before the broadcast),
+    and the launches of each; an instance launched under a capture, where
+    the operands hold no values yet, goes to `captured`. It wraps
+    ops/se3.launch, which every launch of gcslam::lie and gcslam::inv3x3
+    goes through, a vmapped call's with the vmapped dims folded in."""
+
+    def __init__(self):
+        self.inputs, self.launches, self.captured = {}, collections.Counter(), set()
+        self._launch = None
+
+    def install(self) -> "LieInputs":
+        import torch
+        from gcslam_torch.ops import se3
+
+        if self._launch is not None:
+            return self
+        self._launch = launch = se3.launch
+
+        def recording(op, a, b=None, eps=0.0):
+            key = (op, str(a.dtype).replace("torch.", ""), se3.batch_shape(op, a, b))
+            if torch.cuda.is_current_stream_capturing():
+                self.captured.add(key)
+            else:
+                if key not in self.inputs:
+                    self.inputs[key] = (a.clone(), None if b is None else b.clone(), eps)
+                self.launches[key] += 1
+            return launch(op, a, b, eps)
+
+        se3.launch = recording
+        return self
+
+    def uninstall(self) -> None:
+        from gcslam_torch.ops import se3
+
+        if self._launch is not None:
+            se3.launch, self._launch = self._launch, None
+
+    def __enter__(self):
+        return self.install()
+
+    def __exit__(self, *exc):
+        self.uninstall()
+
+    def host(self) -> dict:
+        """The operands as numpy arrays keyed "op|dtype|BxN|a" (and "|b",
+        "|eps"), to cross a process boundary."""
+        out = {}
+        for (op, dt, batch), (a, b, eps) in self.inputs.items():
+            name = f"{op}|{dt}|{'x'.join(map(str, batch))}"
+            out[f"{name}|a"], out[f"{name}|eps"] = a.cpu().numpy(), np.array(eps)
+            if b is not None:
+                out[f"{name}|b"] = b.cpu().numpy()
+        return out
+
+    def merge(self, host: dict, device) -> None:
+        """Add the operands of another process (host()) that this one lacks."""
+        import torch
+
+        parts = collections.defaultdict(dict)
+        for name, arr in host.items():
+            op, dt, shape, part = name.split("|")
+            parts[(op, dt, tuple(int(x) for x in shape.split("x") if x))][part] = arr
+        for key, p in parts.items():
+            if key not in self.inputs:
+                b = torch.as_tensor(p["b"], device=device) if "b" in p else None
+                self.inputs[key] = (torch.as_tensor(p["a"], device=device), b, float(p["eps"]))
+
+
+# The Lie-group kernel's launches of the main paths by instance (op, dtype,
+# batch shape) in other processes (the f32 child's, the mesh ranks'); this
+# process's are LIE_COUNTER's from phase 2's end. LIE_SEEN holds the first
+# operands of every instance the paths launched, which phase_lie_paths
+# holds against the plain version; LIE_FIRST the phase that first launched
+# each (lap()).
+LIE_LAUNCHES = collections.Counter()
+LIE_SEEN = LieInputs()
+LIE_FIRST = {}
+
+
+def lie_counts() -> dict:
+    """LIE_COUNTER's launches by instance (op, dtype, batch shape)."""
+    from gcslam_torch.ops import se3
+
+    return {(shape[0], dt, shape[1:]): n for (dt, shape), n in se3.LIE_COUNTER.by_instance.items()}
+
+
+def lie_call(op, a, b=None, eps=0.0, plain=False):
+    """The public function of a Lie-group kernel op (linalg.inv3x3 for
+    inv3x3), or its plain version."""
+    from gcslam_torch.ops import linalg, se3
+
+    if op == "inv3x3":
+        return (linalg.inv3x3_reference if plain else linalg.inv3x3)(a, eps)
+    return (se3.lie_reference if plain else se3.lie)(op, a, b)
+
+
+def lie_inputs(device) -> LieInputs:
+    """The Lie-group launches of one eager flagship scan (scan
+    EIGH_RECORD_AFTER), by instance: the first operands of each and its
+    launches in the scan."""
+    import torch
+    from gcslam_torch.frontend.synthetic import SyntheticConfig, generate
+    from gcslam_torch.models.config import PipelineConfig
+    from gcslam_torch.models.scan_step import init_state, scan_step
+
+    cfg = PipelineConfig()
+    run = generate(SyntheticConfig(n_scans=EIGH_RECORD_AFTER + 1, n_points=N_POINTS), device=device)
+    with torch.no_grad():
+        state = init_state(cfg, device=device)
+        for b in run.batches[:EIGH_RECORD_AFTER]:
+            state, _ = scan_step(state, b, cfg)
+        with LieInputs() as rec:
+            scan_step(state, run.batches[EIGH_RECORD_AFTER], cfg)
+    return rec
+
+
+def check_lie(key, a, b, eps, inputs: str) -> dict:
+    """The Lie-group kernel's instance `key` on the operands a (and b)
+    against the plain version on the card: finite, two launches bit-equal,
+    bit-equal (skew, inv3x3) or within LIE_RTOL of the output's largest
+    entry; times the kernel (events and device), the plain version (events,
+    and the device time and kernel count of one call's chain); returns the
+    record, `inputs` naming the operands."""
+    import torch
+    from gcslam_torch.ops import se3
+    from gcslam_torch.utils import cuda_profile
+
+    op, dt, batch = key
+    label = f"lie {op} {dt} {batch}"
+    kernel = lambda: lie_call(op, a, b, eps)  # noqa: E731
+    plain = lambda: lie_call(op, a, b, eps, plain=True)  # noqa: E731
+    before = se3.LIE_COUNTER.launches
+    got, got2, want = kernel(), kernel(), plain()
+    torch.cuda.synchronize()
+    if se3.LIE_COUNTER.launches != before + 2:
+        fail(f"{label}: {se3.LIE_COUNTER.launches - before} launches for 2 calls")
+    if not torch.isfinite(got).all():
+        fail(f"{label}: non-finite output")
+    if not torch.equal(got, got2):
+        fail(f"{label}: two launches differ")
+    exact = torch.equal(got, want)
+    rel = float((got - want).abs().max() / want.abs().max().clamp(min=torch.finfo(got.dtype).tiny))
+    if (op in LIE_ELEMENTWISE and not exact) or rel > LIE_RTOL[dt]:
+        fail(f"{label} ({inputs}): kernel and plain version apart by {rel:.3e} of the output's largest entry "
+             f"(tolerance {0.0 if op in LIE_ELEMENTWISE else LIE_RTOL[dt]})")
+    ms = time_call(kernel)
+    dev_ms = device_ms(kernel, r"lie_kernel", label=label)
+    plain_ms = time_call(plain, n=10)
+    for _ in range(DEVICE_TRACE_TRIES):  # a blank session holds no kernel: trace again
+        events, _ = device_trace(plain, 1)
+        plain_kernels = sum(1 for e in events if not e.name().startswith(cuda_profile.NOT_KERNELS))
+        if plain_kernels:
+            break
+    plain_dev_ms = library_device_ms(plain, 10, f"plain {op} {dt} {batch}")
+    n = max(math.prod(batch), 1)
+    n_bytes = sum(x.numel() * x.element_size() for x in (a, b, got) if x is not None)  # a broadcast operand once
+    bound_ms, bound_by = bound(n_bytes, n * LIE_FLOPS[op], PEAK_F64_PER_S if dt == "float64" else PEAK_F32_PER_S)
+    print(f"{label} ({inputs}): {'bit-equal to' if exact else f'{rel:.3e} of the largest entry from'} the plain "
+          f"version; kernel {ms * 1e3:.1f} us/call (events), device {fmt_us(dev_ms)}; plain {plain_ms * 1e3:.1f} "
+          f"us/call (events), {plain_kernels} kernels, {fmt_us(plain_dev_ms)} (device); bound "
+          f"{bound_ms * 1e3:.4f} us ({bound_by})")
+    return dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, plain_kernels=plain_kernels,
+                plain_device_ms=plain_dev_ms, max_abs_err=float((got - want).abs().max()), rel_err=rel,
+                bit_equal=exact, bound_ms=bound_ms, bound_by=bound_by, inputs=inputs)
+
+
+def phase_lie(device):
+    """The Lie-group kernel against its plain version at every instance of
+    one eager flagship scan (lie_inputs), in f64 and f32 (the f32-belief
+    mode's instantiation), on the scan's own operands; then LIE_COUNTER
+    starts again from 0, so that the kernels line counts the main paths'
+    launches. Returns the records by (op, dtype, batch shape) and the
+    scan's launches by instance."""
+    import torch
+    from gcslam_torch.ops import se3
+
+    rec = lie_inputs(device)
+    print(f"Lie-group launches of flagship scan {EIGH_RECORD_AFTER}: {sum(rec.launches.values())} in "
+          f"{len(rec.launches)} instances: "
+          + ", ".join(f"{k[0]} {k[1]} {k[2]} x{v}" for k, v in sorted(rec.launches.items())))
+    records = {key: check_lie(key, a, b, eps, "flagship scan") for key, (a, b, eps) in sorted(rec.inputs.items())}
+    for (op, dt, batch), (a, b, eps) in sorted(rec.inputs.items()):
+        for dtype in (torch.float64, torch.float32):
+            key = (op, str(dtype).replace("torch.", ""), batch)
+            if key not in records:
+                records[key] = check_lie(key, a.to(dtype), None if b is None else b.to(dtype), eps,
+                                         f"flagship scan, cast to {key[1]}")
+    se3.LIE_COUNTER.reset()
+    return records, dict(rec.launches)
+
+
+def phase_lie_paths(records: dict, launches: dict) -> None:
+    """Phase 2 on the paths' own operands: every Lie-group instance the
+    main paths launched (`launches`) that phase_lie did not hold is held
+    against its plain version on its first operands (LIE_SEEN); an
+    instance with no operands recorded fails. Adds the records."""
+    new = sorted(k for k, n in launches.items() if n > 0 and k not in records)
+    missing = [k for k in new if k not in LIE_SEEN.inputs]
+    if missing:
+        fail(f"Lie-group instances the main paths launched with no operands recorded outside a capture: {missing}")
+    for key in new:
+        records[key] = check_lie(key, *LIE_SEEN.inputs[key], inputs=f"{LIE_FIRST.get(key, 'a main path')}'s own")
+    print(f"lie: {len(new)} more instances of the main paths held against the plain versions on their own operands; "
+          f"{len(records)} instances in all")
 
 
 def phase_eigh(device):
@@ -2050,23 +2290,26 @@ def phase_sweep(device, run, out_flag, ate_flag):
 
 def _mesh_counters_reset() -> None:
     """A rank's counters to 0 before a family's run (the first call installs
-    the rank's EIGH_SEEN)."""
-    from gcslam_torch.ops import collectives, sinkhorn
+    the rank's EIGH_SEEN and LIE_SEEN)."""
+    from gcslam_torch.ops import collectives, se3, sinkhorn
 
     EIGH_SEEN.install()
+    LIE_SEEN.install()
     sinkhorn.COUNTER.reset()
     eigh_reset()
+    se3.LIE_COUNTER.reset()
     collectives.COUNTER.clear()
 
 
 def _mesh_family_record(n_scans: int, seconds: float, warm_seconds=None, warm_scans=None):
     """A rank's counters after a family's run: Sinkhorn launches and
-    shapes, eigh launches by instance and the rank's eigh inputs so far,
-    collectives by axis, ms/scan."""
+    shapes, eigh and Lie-group launches by instance and the rank's eigh and
+    Lie-group operands so far, collectives by axis, ms/scan."""
     from gcslam_torch.ops import collectives, sinkhorn
 
     rec = {"sinkhorn_launches": sinkhorn.COUNTER.launches, "sinkhorn_shapes": sorted(sinkhorn.COUNTER.shapes),
            "eigh_launches": eigh_counts(), "eigh_inputs": EIGH_SEEN.host(),
+           "lie_launches": lie_counts(), "lie_inputs": LIE_SEEN.host(),
            "collectives": dict(collectives.COUNTER), "n_scans": n_scans,
            "ms_per_scan_cold": 1e3 * seconds / n_scans}
     if warm_seconds is not None:
@@ -2194,12 +2437,15 @@ def mesh_cards_rank(device, n_cards: int) -> dict:
     return out
 
 
-def _eigh_from_ranks(label: str, recs) -> None:
-    """Credit the ranks' eigh launches of a family's run to `label`, and add
-    their eigh inputs to EIGH_SEEN."""
+def _credit_ranks(label: str, recs) -> None:
+    """Credit the ranks' eigh launches of a family's run to `label` and
+    their Lie-group launches to LIE_LAUNCHES, and add their eigh and
+    Lie-group operands to EIGH_SEEN and LIE_SEEN."""
     for rec in recs:
         eigh_credit(label, rec["eigh_launches"])
         EIGH_SEEN.merge(rec["eigh_inputs"], "cuda")
+        LIE_LAUNCHES.update(rec["lie_launches"])
+        LIE_SEEN.merge(rec["lie_inputs"], "cuda")
 
 
 def _sinkhorn_check(label: str, rec: dict, n_scans: int, shape) -> None:
@@ -2243,7 +2489,7 @@ def phase_mesh(device, sweep_poses):
     R = MESH_ONE_CARD_RUNS
     _sinkhorn_check("(run=1)", one, MESH_ONE_CARD_SCANS, (R, N, K))
     count(("float64", R, N), one["sinkhorn_launches"])
-    _eigh_from_ranks("mesh (run=1)", [one])
+    _credit_ranks("mesh (run=1)", [one])
     want = {"run": MESH_ONE_CARD_SCANS + 1}  # the aggregates' pose gather a scan, the outputs' at the end
     if one["collectives"] != want:
         fail(f"mesh (run=1): collectives {one['collectives']}, expected {want}")
@@ -2274,7 +2520,7 @@ def phase_mesh(device, sweep_poses):
         fam = shared[0][name]
         _sinkhorn_check(f"{fam['mesh']} on a shared card", fam, MESH_SHARED_CARD_SCANS, (B, N, K))
         count(("float64", B, N), sum(s[name]["sinkhorn_launches"] for s in shared))
-        _eigh_from_ranks(f"mesh {fam['mesh']} on a shared card", [s[name] for s in shared])
+        _credit_ranks(f"mesh {fam['mesh']} on a shared card", [s[name] for s in shared])
         d = float(np.abs(fam["pose"] - fam["plain_pose"]).max())
         if not np.all(np.isfinite(fam["pose"])) or not d <= MESH_POSE_BOUND_M:
             fail(f"mesh {fam['mesh']} on a shared card: max |d pose| {d:.3e} from run_sweep (bound {MESH_POSE_BOUND_M})")
@@ -2331,7 +2577,7 @@ def phase_mesh(device, sweep_poses):
             if not np.array_equal(rank[name]["pose"], fam["pose"]):
                 fail(f"mesh {fam['mesh']}: rank {r} gathered other poses than rank 0")
         count(("float64", B, N), sum(rank[name]["sinkhorn_launches"] for rank in ranks))
-        _eigh_from_ranks(f"mesh {fam['mesh']}", [rank[name] for rank in ranks])
+        _credit_ranks(f"mesh {fam['mesh']}", [rank[name] for rank in ranks])
         poses = fam["pose"]
         if poses.shape != (SWEEP_RUNS, N_SCANS, 6) or not np.all(np.isfinite(poses)):
             fail(f"mesh {fam['mesh']}: poses of shape {poses.shape}, or non-finite")
@@ -2600,23 +2846,26 @@ def f32_flagship_child() -> None:
     """Phase 13's child (GCSLAM_BELIEF_DTYPE=float32 binds at import): the
     flagship replay after a warm-up; prints one JSON line. The Sinkhorn
     calls are the (dtype, (N, K)) of its launches and the eigh launches by
-    instance, from the launch counters (credited at each graph replay); the
-    first input of each eigh instance goes to F32_EIGH_INPUTS."""
+    instance, from the launch counters (credited at each graph replay), and
+    so the Lie-group launches; the first input of each eigh instance goes
+    to F32_EIGH_INPUTS, the first operands of each Lie-group instance to
+    F32_LIE_INPUTS."""
     import torch
     from gcslam_torch.eval.ate_rpe import compute_ate
     from gcslam_torch.frontend.synthetic import SyntheticConfig, generate
     from gcslam_torch.models import runner
     from gcslam_torch.models.config import PipelineConfig
-    from gcslam_torch.ops import eigh, sinkhorn
+    from gcslam_torch.ops import eigh, se3, sinkhorn
     from gcslam_torch.tools.precision_compare import certificate_fields
     from gcslam_torch.utils.dtypes import BELIEF_DTYPE
 
     EIGH_SEEN.install()
+    LIE_SEEN.install()
     run = generate(SyntheticConfig(n_scans=N_SCANS, n_points=N_POINTS))
     cfg = PipelineConfig()
     runner.run_bag(run.batches[:N_WARMUP], cfg)
     torch.cuda.synchronize()
-    for counter in [sinkhorn.COUNTER] + list(eigen_counters().values()):
+    for counter in [sinkhorn.COUNTER, se3.LIE_COUNTER] + list(eigen_counters().values()):
         counter.reset()
     t0 = time.perf_counter()
     _, out = runner.run_bag(run.batches, cfg)
@@ -2629,9 +2878,11 @@ def f32_flagship_child() -> None:
                      for (dt, shape), n in sorted(counter.by_instance.items())]
     os.makedirs(OUT_DIR, exist_ok=True)
     np.savez(F32_EIGH_INPUTS, **EIGH_SEEN.host())
+    np.savez(F32_LIE_INPUTS, **LIE_SEEN.host())
     print(json.dumps({"belief_dtype": str(BELIEF_DTYPE), "pose_dtype": str(out.pose.dtype), "ms_per_scan": ms,
                       "sinkhorn_launches": sinkhorn.COUNTER.launches, "sinkhorn_calls": calls,
                       "eigh_launches": eigh_launches,
+                      "lie_launches": [[op, dt, list(b), n] for (op, dt, b), n in sorted(lie_counts().items())],
                       "finite": bool(np.isfinite(poses).all()), "ate_m": ate["translation"]["rmse"],
                       "ate_deg": ate["rotation_deg"]["rmse"], **certificate_fields(out.tape)}))
 
@@ -2639,7 +2890,8 @@ def f32_flagship_child() -> None:
 def phase_f32(out_flag, ate_flag, ms_flag):
     """The f32-belief flagship in a child process; returns its record and
     its Sinkhorn launches (all of the f32 instance). Its eigh launches are
-    credited, and its eigh inputs join EIGH_SEEN."""
+    credited and its Lie-group launches join LIE_LAUNCHES; its eigh inputs
+    join EIGH_SEEN, its Lie-group operands LIE_SEEN."""
     from gcslam_torch.tools.precision_compare import certificate_fields
 
     root = os.path.dirname(os.path.abspath(__file__))
@@ -2669,6 +2921,9 @@ def phase_f32(out_flag, ate_flag, ms_flag):
     eigh_credit("f32-belief flagship", {(name, dt, tuple(shape)): n for name, dt, shape, n in r["eigh_launches"]})
     with np.load(os.path.join(root, F32_EIGH_INPUTS)) as z:
         EIGH_SEEN.merge(dict(z), "cuda")
+    LIE_LAUNCHES.update({(op, dt, tuple(batch)): n for op, dt, batch, n in r["lie_launches"]})
+    with np.load(os.path.join(root, F32_LIE_INPUTS)) as z:
+        LIE_SEEN.merge(dict(z), "cuda")
     return {**r, "child_s": child_s, "f64_certificates": f64}, r["sinkhorn_launches"]
 
 
@@ -2964,6 +3219,7 @@ def main(argv=None) -> None:
     import argparse
 
     import torch
+    from gcslam_torch.ops import se3
 
     p = argparse.ArgumentParser(prog="python3 chip_smoke.py")
     p.add_argument("--phases", default=None,
@@ -2989,6 +3245,10 @@ def main(argv=None) -> None:
 
     def lap(name: str) -> None:
         seconds[name] = time.perf_counter() - t_start - sum(seconds.values())
+        for key in LIE_SEEN.inputs:  # the Lie-group instances this phase launched first
+            LIE_FIRST.setdefault(key, name)
+        LIE_LAUNCHES.update(lie_counts())  # and this phase's launches, whatever reads the counter later
+        se3.LIE_COUNTER.reset()
         print(f"[{name}: {seconds[name]:.1f} s; {time.perf_counter() - t_start:.1f} s since the start]", flush=True)
 
     # 2. kernels against their plain versions
@@ -2997,8 +3257,10 @@ def main(argv=None) -> None:
     rs = phase_raster(device)
     eg, eigh_per_scan = phase_eigh(device)
     eigh_random = phase_eigh_random(device)
+    lie, lie_per_scan = phase_lie(device)
     lap("phases 1-2")
     EIGH_SEEN.install()  # the first input of every eigh instance the paths launch
+    LIE_SEEN.install()  # and the first operands of every Lie-group instance
 
     sinkhorn_launches, raster_launches, paths = {}, {}, {}
     sweep_poses = None
@@ -3130,7 +3392,25 @@ def main(argv=None) -> None:
             **{k: rec[k] for k in ("eigh_library_ms", "eigh3_device_ms", "epilogue_kernels", "epilogue_device_ms",
                                    "projection_kernels_of_20")
                if k in rec}))
-    kernels = [k for k in kernels if k["launches"] > 0 or k["name"] not in EIGEN_COUNTERS]
+    # the main paths' Lie-group launches: this process's since phase 2 (lap()), the f32 child's, the mesh ranks';
+    # frozen here, since phase 2's checks below launch the kernel too
+    LIE_LAUNCHES.update(lie_counts())
+    LIE_SEEN.uninstall()
+    lie_launches = dict(LIE_LAUNCHES)
+    phase_lie_paths(lie, lie_launches)
+    lap("phase 2 on the paths' Lie-group operands")
+    for key, rec in sorted(lie.items()):
+        kernels.append(dict(
+            name="lie", instance=f"{key[0]} {key[1]} {key[2]}",
+            paths="the step" if key in lie_per_scan else rec["inputs"].removesuffix("'s own"), route="cuda",
+            source="gcslam_torch/csrc/se3.cu", replaces=LIE_REPLACES, launches=lie_launches.get(key, 0),
+            launches_per_flagship_scan=lie_per_scan.get(key), library_ms=None, **rec))
+    # an eigh instance and a float32 cast of a flagship scan's Lie-group instance are phase 2's own checks,
+    # kept where a main path launched them; every other row's instance must have been launched
+    cast = {k["instance"] for k in kernels if k["name"] == "lie" and k["launches"] == 0 and "cast to" in k["inputs"]}
+    print(f"lie: {len(cast)} float32 casts of the flagship scan's instances no main path launched, not listed")
+    dropped = lambda k: k["name"] in EIGEN_COUNTERS or k["name"] == "lie" and k["instance"] in cast  # noqa: E731
+    kernels = [k for k in kernels if k["launches"] > 0 or not dropped(k)]
     missing = [f"{k['name']} {k['instance']}" for k in kernels if k["launches"] < 1]
     if full and missing:
         fail(f"kernel instances the main paths never launched: {missing}")

@@ -17,6 +17,7 @@ import torch
 
 from gcslam_torch import constants as C
 from gcslam_torch.ops import eigh
+from gcslam_torch.ops import se3
 from gcslam_torch.ops.se3 import mv
 
 
@@ -146,7 +147,14 @@ def det3x3(M: torch.Tensor) -> torch.Tensor:
 
 def inv3x3(M: torch.Tensor, eps: float = 0.0) -> torch.Tensor:
     """Scale-normalized adjugate inverse of (..., 3, 3) with an optional
-    +eps*I lift and a relative, sign-preserving determinant floor."""
+    +eps*I lift and a relative, sign-preserving determinant floor: the
+    custom operator gcslam::inv3x3, one launch of csrc/se3.cu on a CUDA
+    tensor (se3.launch), inv3x3_reference on a CPU tensor."""
+    return _inv3x3_op(M, float(eps))
+
+
+def inv3x3_reference(M: torch.Tensor, eps: float = 0.0) -> torch.Tensor:
+    """The plain version of inv3x3."""
     s = M.abs().amax(dim=(-2, -1), keepdim=True)
     s = torch.where(s > 0.0, s, 1.0)
     eps_rel = 32.0 * torch.finfo(M.dtype).eps
@@ -176,6 +184,22 @@ def inv3x3(M: torch.Tensor, eps: float = 0.0) -> torch.Tensor:
         dim=-2,
     )
     return adjT * (inv_det[..., None, None] / s)
+
+
+@torch.library.custom_op("gcslam::inv3x3", mutates_args=(), device_types="cpu")
+def _inv3x3_op(M: torch.Tensor, eps: float) -> torch.Tensor:
+    return inv3x3_reference(M, eps)
+
+
+@_inv3x3_op.register_kernel("cuda")
+def _inv3x3_cuda(M, eps):
+    return se3.launch("inv3x3", M, None, eps)
+
+
+@_inv3x3_op.register_vmap
+def _inv3x3_vmap(info, in_dims, M, eps):
+    """The vmapped dim leads the batch: one call (on CUDA one launch)."""
+    return _inv3x3_op(M.movedim(in_dims[0], 0), eps), 0
 
 
 def solve3x3(M: torch.Tensor, b: torch.Tensor, eps: float = 0.0) -> torch.Tensor:

@@ -25,9 +25,15 @@ CUDA card it reports:
   - top_functions: launches, aten ops and device microseconds by the
     function of gcslam_torch that issued them (file:function), the top 25
     by launches (the JAX tool's attribution by op_name);
-    attributed_launches counts the launches that have such a function.
+    attributed_launches counts the launches that have such a function;
+  - lie_launches_by_op: the launches of csrc/se3.cu's Lie-group kernel in
+    the scan by op (ops/se3.LIE_COUNTER): one a call of the SO(3)/SE(3)
+    maps and of linalg.inv3x3, which shows that the step goes through the
+    kernel.
 On the CPU it reports the dispatched aten ops, the 0-d ones and the same
-attribution by aten ops, with the device columns None.
+attribution by aten ops, with the device columns None and no Lie
+launches (there each such call is the one op gcslam::lie or
+gcslam::inv3x3, whose plain version runs inside it).
 
 --replay profiles run_bag over the last scan (the replay path: the bag's
 commit to the device and the output stacking with the step) in place of
@@ -123,9 +129,11 @@ def _marking_mode():
 
 def census(fn, cuda: bool) -> dict:
     """Profile fn() (one scan) and count what it dispatched and launched."""
+    from gcslam_torch.ops import se3
     from gcslam_torch.utils import cuda_profile
 
     marks = _marking_mode()
+    lie_before = se3.LIE_COUNTER.snapshot()
 
     def marked():
         with marks:
@@ -147,6 +155,7 @@ def census(fn, cuda: bool) -> dict:
         "d2d_copy_bytes": None,
         "device_us": None,
         "attributed_launches": None,
+        "lie_launches_by_op": se3.launches_by_op(since=lie_before),
     }
     if cuda:
         report.update(_device_columns(prof, marks, rows))

@@ -26,6 +26,11 @@ counterpart:
   - top_kernels: the 15 most-launched kernel names in one profiled step
     (utils/cuda_profile), or on the CPU the 15 most-dispatched aten ops:
     the JAX tool's hlo_top_ops;
+  - lie_launches_per_scan: the launches of csrc/se3.cu's Lie-group kernel
+    a scan by op (ops/se3.LIE_COUNTER), in the profiled eager step and
+    (on the card) over graph.stages' replays: one a call of the maps and
+    of linalg.inv3x3, which shows that the step goes through the kernel
+    (none on the CPU, where the plain versions run);
   - finite: whether the last pose is finite.
 --trace DIR writes a torch.profiler Chrome trace of the timed steps.
 
@@ -62,6 +67,7 @@ def main(argv=None) -> dict:
     from gcslam_torch.models.config import PipelineConfig
     from gcslam_torch.models.manifest import compute_cert
     from gcslam_torch.models.scan_step import init_state, scan_step
+    from gcslam_torch.ops import se3
     from gcslam_torch.utils import cuda_profile
     from gcslam_torch.utils.device import resolve_device
     from gcslam_torch.utils.profiling import COUNTERS, StepTimer, trace
@@ -85,6 +91,7 @@ def main(argv=None) -> dict:
     compute, (state, out) = compute_cert(step, state, batches[1])
 
     profiled = []
+    lie_before = se3.LIE_COUNTER.snapshot()
     if device.type == "cuda":
         prof, _ = cuda_profile.profile(lambda: profiled.append(step(state, batches[2])), ("cuda",))
         top = cuda_profile.kernel_counts(prof)
@@ -92,6 +99,7 @@ def main(argv=None) -> dict:
         prof, _ = cuda_profile.profile(lambda: profiled.append(step(state, batches[2])), ("cpu",))
         top = collections.Counter({e.key: e.count for e in prof.key_averages() if e.key.startswith("aten::")})
     state, out = profiled[0]
+    lie = {"eager": se3.launches_by_op(since=lie_before), "graph": None}
 
     timer = StepTimer()
     with trace(args.trace) if args.trace else contextlib.nullcontext():
@@ -118,8 +126,10 @@ def main(argv=None) -> dict:
         if batches[4:]:
             clock = loop.compiled.stage_clock
             clock.reset()
+            lie_before = se3.LIE_COUNTER.snapshot()
             runner.run_bag(batches[4:], cfg, state=loop.result()[0], device=device)
             reading = clock.read()
+            lie["graph"] = {op: n / len(batches[4:]) for op, n in se3.launches_by_op(since=lie_before).items()}
             graph["stages"] = {"ms_per_scan": {k: round(v, 4) for k, v in reading.ms_per_scan.items()},
                                "between_steps_share": round(reading.between_share, 5),
                                "between_ms_per_scan": round(reading.between_ms_per_scan, 4),
@@ -133,6 +143,7 @@ def main(argv=None) -> dict:
         "graph": graph,
         "compute": compute,
         "top_kernels": dict(top.most_common(TOP_KERNELS)),
+        "lie_launches_per_scan": lie,
         "finite": bool(np.all(np.isfinite(COUNTERS.to_host(out.pose)))),
     }
     print(json.dumps(report, indent=2))

@@ -5,12 +5,13 @@ deploy-time step before a robot or eval.run boots).
 The JAX tool compiles the pipeline's XLA programs into a persistent cache.
 The port's step builds nothing per config on disk (on the card each
 process captures its compiled step, a CUDA graph, at its first scan of a
-config): what a fresh process would otherwise build is its five native
+config): what a fresh process would otherwise build is its six native
 libraries, each into gcslam_torch/csrc/build/ under a name that hashes its
 source and flags:
 
-  - csrc/sinkhorn.cu, csrc/raster.cu, csrc/eigh.cu and csrc/stage_clock.cu
-    (the compiled step's stage clock), with nvcc for sm_90a (the card);
+  - csrc/sinkhorn.cu, csrc/raster.cu, csrc/eigh.cu, csrc/se3.cu and
+    csrc/stage_clock.cu (the compiled step's stage clock), with nvcc for
+    sm_90a (the card);
   - csrc/bag_decode.cpp, with g++ (the host).
 It reports, for each, whether it was already built and the seconds to
 build (when it was not) and load it; then the seconds of one flagship
@@ -40,14 +41,15 @@ def libraries(cpu: bool):
     """name -> (library path, build-and-load function) for the libraries
     of the route: the host decoder alone with cpu."""
     from gcslam_torch.frontend import native
-    from gcslam_torch.ops import eigh, sinkhorn
+    from gcslam_torch.ops import eigh, se3, sinkhorn
     from gcslam_torch.outputs import raster
     from gcslam_torch.utils.profiling import stamp_library
 
     libs = {"bag_decode": (native.library_path, native.library)}
     if not cpu:
         libs.update(sinkhorn=(sinkhorn.library_path, sinkhorn.load), raster=(raster.library_path, raster.load),
-                    eigh=(eigh.library_path, eigh.load), stage_clock=(stamp_library().path, stamp_library().lib))
+                    eigh=(eigh.library_path, eigh.load), se3=(se3.library_path, se3.load),
+                    stage_clock=(stamp_library().path, stamp_library().lib))
     return libs
 
 

@@ -494,7 +494,9 @@ def test_kernel_census_counts_the_profilers_launches(cuda):
     the same scan from the same state (one definition of a launch), to
     0.1 %: under the census's dispatch mode the step makes 3 launches more
     (27,119 against 27,116 at SMALL, 27,132 against 27,129 on a flagship
-    scan, on the H100); and every launch is attributed to a function."""
+    scan, on the H100); and every launch is attributed to a function; the
+    scan's Lie-group calls are one launch each (78 at SMALL as on a
+    flagship scan)."""
     from gcslam_torch.models.scan_step import scan_step
     from gcslam_torch.tools import kernel_census
     from gcslam_torch.utils.cuda_profile import profile_record
@@ -506,6 +508,7 @@ def test_kernel_census_counts_the_profilers_launches(cuda):
         ref = profile_record(lambda: scan_step(state, run.batches[3], cfg), 1)
         rep = kernel_census.census(lambda: scan_step(state, run.batches[3], cfg), True)
     assert rep["launch_calls_per_scan"] == rep["attributed_launches"]
+    assert sum(rep["lie_launches_by_op"].values()) == LIE_CALLS_PER_FLAGSHIP_SCAN
     assert abs(rep["launch_calls_per_scan"] - ref["launch_calls_per_scan"]) <= 1e-3 * ref["launch_calls_per_scan"]
     assert rep["device_kernels_per_scan"] > 0 and rep["d2d_copies"] >= 0
     top = rep["top_functions"]
@@ -903,3 +906,264 @@ def test_stage_clock_in_the_graph(cuda):
     assert not implicit_syncs(lambda: runner.run_bag(batches, cfg, state=state, device=cuda))
     assert runner.stage_reading().scans == (len(batches) - 1) + len(batches)
     runner.release_graphs()
+
+
+# --- the Lie-group maps and the 3 x 3 inverse (csrc/se3.cu) -------------------
+
+# A flagship scan's launches of the Lie-group kernel (gcslam::lie and
+# gcslam::inv3x3) by op and batch shape (a census on the CPU,
+# PipelineConfig(), 8192 points: 78 calls a scan), plus the se3_inverse
+# the kernel also serves and a broadcast compose.
+LIE_SHAPES = {
+    "so3_exp": [(), (4,), (512,), (2, 4, 512), (8192,)],
+    "so3_log": [(), (4,), (2, 4)],
+    "se3_exp": [(), (4,), (8192,)],
+    "se3_log": [(), (4,)],
+    "se3_compose": [(), (4,), ((4,), ())],
+    "se3_inverse": [(4,)],
+    "se3_relative": [(4,), ((4,), ())],
+    "skew": [(1024,)],
+    "inv3x3": [(), (4,), (7, 4), (7, 64), (7, 128), (1024,), (7168,)],
+}
+LIE_CALLS_PER_FLAGSHIP_SCAN = 78
+# outputs that pass through a 3 x 3 product or a reduction (cuBLAS, torch's
+# sums, norms and softmax in the plain version): within these of the
+# output's largest entry; skew and inv3x3 are elementwise: bit-equal
+LIE_RTOL = {torch.float64: 2e-15, torch.float32: 1e-6}
+LIE_ELEMENTWISE = {"skew", "inv3x3"}
+
+
+def _lie_operands(op, shape, dtype, device, seed):
+    """Operands of an op at a batch shape (a pair of shapes for a broadcast
+    two-pose call), shaped as the step's: rotation vectors of norm up to 2
+    rad, poses with translations of ~1 m; se3_compose's second pose a small
+    increment (<= 0.3 rad, ~0.3 m), se3_relative's first pose the second
+    composed with such an increment (as the step composes a pose with an
+    odometry or Gauss-Newton step, and takes the relative pose of nearby
+    poses); inv3x3's matrices symmetric positive definite, as the step's
+    information matrices. So no output lies near pi, where so3_log's
+    generic branch scales a last-bit difference of the 3 x 3 product by
+    theta / sin(theta)."""
+    from gcslam_torch.ops import se3
+
+    rng = np.random.default_rng(seed)
+    two = se3.OPS[op][1] is not None
+    shapes = shape if isinstance(shape[0] if shape else None, tuple) else (shape,) * (1 + two)
+
+    def rotvec(batch, max_angle):
+        v = rng.normal(size=batch + (3,))
+        return v / np.linalg.norm(v, axis=-1, keepdims=True) * rng.uniform(0.0, max_angle, size=batch + (1,))
+
+    def pose(batch, scale, max_angle):
+        return torch.as_tensor(np.concatenate([scale * rng.normal(size=batch + (3,)), rotvec(batch, max_angle)], -1),
+                               device=device)
+
+    if op in ("so3_exp", "skew"):
+        args = [torch.as_tensor(rotvec(shapes[0], 2.0), device=device)]
+    elif op == "so3_log":
+        args = [se3.so3_exp_reference(torch.as_tensor(rotvec(shapes[0], 2.0), device=device))]
+    elif op == "inv3x3":
+        A = rng.normal(size=shapes[0] + (3, 3))
+        args = [torch.as_tensor(A @ np.swapaxes(A, -1, -2) + 0.01 * np.eye(3), device=device)]
+    elif op == "se3_compose":
+        args = [pose(shapes[0], 1.0, 2.0), pose(shapes[1], 0.3, 0.3)]
+    elif op == "se3_relative":
+        b = pose(shapes[1], 1.0, 2.0)
+        args = [se3.se3_compose_reference(b, pose(shapes[0], 0.3, 0.3)), b]
+    else:
+        args = [pose(shapes[0], 1.0, 2.0)]
+    return [a.to(dtype) for a in args]
+
+
+def _lie_call(op, args, plain=False):
+    from gcslam_torch.ops import linalg, se3
+
+    if op == "inv3x3":
+        return (linalg.inv3x3_reference if plain else linalg.inv3x3)(args[0], 1e-9)
+    return getattr(se3, f"{op}_reference" if plain else op)(*args)
+
+
+def _check_lie(op, got, want, dtype):
+    assert got.shape == want.shape and got.dtype == want.dtype == dtype
+    assert torch.isfinite(got).all()
+    if op in LIE_ELEMENTWISE:
+        assert torch.equal(got, want), (op, float((got - want).abs().max()))
+    else:
+        err = float((got - want).abs().max() / want.abs().max())
+        assert err <= LIE_RTOL[dtype], (op, err)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("op,shape", [(op, s) for op, shapes in LIE_SHAPES.items() for s in shapes])
+def test_lie_kernel_matches_plain(cuda, dtype, op, shape):
+    """One launch a call at a flagship scan's shapes, two launches
+    bit-equal, the plain version on the card to the bit (elementwise ops)
+    or within LIE_RTOL of the output's largest entry."""
+    from gcslam_torch.ops import se3
+
+    args = _lie_operands(op, shape, dtype, cuda, seed=len(str(shape)) + len(op))
+    before = se3.LIE_COUNTER.launches
+    got, got2 = _lie_call(op, args), _lie_call(op, args)
+    assert se3.LIE_COUNTER.launches == before + 2
+    want = _lie_call(op, args, plain=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, got2)
+    _check_lie(op, got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("op", list(LIE_SHAPES))
+def test_lie_kernel_on_every_branch(cuda, dtype, op):
+    """The edge cases of tests/test_torch_se3_kernel.py on the card
+    (theta = 0, < 1e-7, in (1e-7, 1e-4), near pi, pi; singular, zero and
+    badly scaled 3 x 3 matrices): the plain version's branch and value.
+    se3_compose composes each pose with itself (angles 2 theta: 0, small,
+    generic, 2 pi - 2e-6, 2 pi). se3_relative takes the relative pose of
+    each pose and the pose composed with a step, a small one (~1 cm, ~0.01
+    rad: nearby poses, as the step compares) and a large one (~1 m, ~0.6
+    rad); its error is held to the size of its operands, since the
+    inverse's rounding (its rotation near pi carries ulp(pi) into the
+    composition) is of that size whatever the size of the relative pose."""
+    from gcslam_torch.ops import se3
+    from test_torch_se3_kernel import operands
+
+    args = [a.to(cuda) for a in operands(op, dtype)]
+    if op == "se3_relative":
+        for step in ([0.01, -0.006, 0.004, 0.002, 0.005, -0.003], [1.0, -0.6, 0.4, 0.2, 0.5, -0.3]):
+            step = torch.tensor(step, dtype=dtype, device=cuda)
+            a = [se3.se3_compose_reference(args[0], step), args[0]]
+            got, want = _lie_call(op, a), _lie_call(op, a, plain=True)
+            torch.cuda.synchronize()
+            scale = max(float(x.abs().max()) for x in a + [want])
+            assert torch.isfinite(got).all() and got.shape == want.shape
+            assert float((got - want).abs().max()) <= LIE_RTOL[dtype] * scale, (step, got - want)
+        return
+    if op == "se3_compose":
+        args[1] = args[0]
+    got, want = _lie_call(op, args), _lie_call(op, args, plain=True)
+    torch.cuda.synchronize()
+    if op == "inv3x3":  # the zero matrix's inverse is 1 / eps_rel on the diagonal: finite
+        assert torch.equal(got, want)
+    else:
+        _check_lie(op, got, want, dtype)
+
+
+def test_lie_vmap_graph_and_refusals(cuda):
+    """A vmapped call is one launch, bit-equal to a launch per run (one
+    thread's arithmetic an element); a CUDA graph captures the launch and
+    its replays equal eager launches; the wrapper refuses a dtype, a
+    trailing shape and mixed operands it does not take."""
+    from gcslam_torch.ops import se3
+
+    a = _lie_operands("se3_compose", (3, 4), torch.float64, cuda, seed=1)
+    b0 = a[1][0, 0]
+    before = se3.LIE_COUNTER.launches
+    out = torch.func.vmap(se3.se3_compose, in_dims=(0, None))(a[0], b0)
+    assert se3.LIE_COUNTER.launches == before + 1
+    assert torch.equal(out, torch.stack([se3.se3_compose(a[0][r], b0) for r in range(3)]))
+    w = a[0][..., 3:6].clone()
+    before = se3.LIE_COUNTER.launches
+    R = torch.func.vmap(se3.so3_exp, in_dims=1)(w)
+    assert se3.LIE_COUNTER.launches == before + 1
+    assert torch.equal(R, torch.stack([se3.so3_exp(w[:, r]) for r in range(4)]))
+    static = w.clone()
+    se3.so3_log(se3.so3_exp(static))
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = se3.so3_log(se3.so3_exp(static))
+    for seed in (2, 3):
+        static.copy_(torch.as_tensor(np.random.default_rng(seed).normal(size=(3, 4, 3)), device=cuda))
+        graph.replay()
+        eager = se3.so3_log(se3.so3_exp(static))
+        torch.cuda.synchronize()
+        assert torch.equal(captured, eager)
+    with pytest.raises(TypeError):
+        se3.so3_exp(w.half())
+    with pytest.raises(ValueError):
+        se3.so3_exp(a[0])
+    with pytest.raises(TypeError):
+        se3.se3_compose(a[0], a[1].float())
+
+
+def test_a_flagship_scan_launches_the_lie_kernel_once_a_call(cuda):
+    """An eager flagship scan (PipelineConfig(), 8192 points) dispatches
+    every call of the Lie maps and inv3x3 as one operator, gcslam::lie or
+    gcslam::inv3x3, 78 of them, and no other op from those functions; LIE_COUNTER counts 78
+    launches, and a profiler trace of the scan holds 78 lie_kernel records;
+    the replays of run_bag count the same launches a scan."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from gcslam_torch.models.scan_step import init_state, scan_step
+    from gcslam_torch.ops import se3
+    from gcslam_torch.tools.kernel_census import _caller
+    from gcslam_torch.utils import cuda_profile
+
+    lie_functions = {f"gcslam_torch/ops/se3.py:{f}" for f in list(se3.OPS) + ["lie"]} | {
+        "gcslam_torch/ops/linalg.py:inv3x3"}
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops.append((str(func), _caller()))
+            return func(*args, **(kwargs or {}))
+
+    cfg = PipelineConfig()
+    run = generate(SyntheticConfig(n_scans=4, n_points=8192), device=cuda)
+    with torch.no_grad():
+        state = init_state(cfg, device=cuda)
+        for b in run.batches[:3]:
+            state, _ = scan_step(state, b, cfg)
+        se3.LIE_COUNTER.reset()
+        with Ops() as rec:
+            scan_step(state, run.batches[3], cfg)
+        assert se3.LIE_COUNTER.launches == LIE_CALLS_PER_FLAGSHIP_SCAN, dict(se3.LIE_COUNTER.by_instance)
+        from_lie = [op for op, caller in rec.ops if caller in lie_functions]
+        assert len(from_lie) == LIE_CALLS_PER_FLAGSHIP_SCAN, sorted(set(from_lie))
+        assert set(from_lie) == {"gcslam.lie.default", "gcslam.inv3x3.default"}, sorted(set(from_lie))
+        prof, _ = cuda_profile.profile(lambda: scan_step(state, run.batches[3], cfg))
+        kernels = [e.name() for e in cuda_profile.device_activity(cuda_profile.raw_events(prof))]
+        assert sum("lie_kernel" in k for k in kernels) == LIE_CALLS_PER_FLAGSHIP_SCAN
+    se3.LIE_COUNTER.reset()
+    runner.release_graphs()
+    runner.run_bag(run.batches, cfg, device=cuda)
+    torch.cuda.synchronize()
+    assert se3.LIE_COUNTER.launches == LIE_CALLS_PER_FLAGSHIP_SCAN * len(run.batches)
+    runner.release_graphs()
+
+
+def test_lie_kernel_holds_the_plain_version_on_a_flagship_scan(cuda):
+    """Every launch of the Lie-group kernel in an eager flagship scan
+    (PipelineConfig(), 8192 points, scan 3), replayed on its own operands
+    against the plain version on the card: skew and inv3x3 to the bit, the
+    rest within LIE_RTOL of the output's largest entry."""
+    from gcslam_torch.models.scan_step import init_state, scan_step
+    from gcslam_torch.ops import linalg, se3
+
+    calls = {}
+    launch = se3.launch
+
+    def recording(op, a, b=None, eps=0.0):
+        calls.setdefault((op, a.dtype, se3.batch_shape(op, a, b)), (a.clone(), None if b is None else b.clone(), eps))
+        return launch(op, a, b, eps)
+
+    cfg = PipelineConfig()
+    run = generate(SyntheticConfig(n_scans=4, n_points=8192), device=cuda)
+    with torch.no_grad():
+        state = init_state(cfg, device=cuda)
+        for b in run.batches[:3]:
+            state, _ = scan_step(state, b, cfg)
+        se3.launch = recording
+        try:
+            scan_step(state, run.batches[3], cfg)
+        finally:
+            se3.launch = launch
+    assert len(calls) >= 20 and any(k[0] == "inv3x3" for k in calls)
+    for (op, dtype, batch), (a, b, eps) in sorted(calls.items(), key=str):
+        got = se3.launch(op, a, b, eps)
+        want = linalg.inv3x3_reference(a, eps) if op == "inv3x3" else se3.lie_reference(op, a, b)
+        torch.cuda.synchronize()
+        _check_lie(op, got, want, dtype)

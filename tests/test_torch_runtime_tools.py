@@ -89,6 +89,7 @@ def test_profile_step_report(monkeypatch):
                                    "peak_above_start_bytes"}
     assert rep["compute"]["matmul_flops"] > 0 and rep["compute"]["peak_allocated_bytes"] is None
     assert len(rep["top_kernels"]) == profile_step.TOP_KERNELS and rep["first_scan_s"] > 0
+    assert rep["lie_launches_per_scan"] == {"eager": {}, "graph": None}
 
 
 def test_kernel_census_report():
@@ -101,6 +102,7 @@ def test_kernel_census_report():
     assert PORT_FOR_XLA["hlo_census"] <= set(rep)
     assert rep["backend"] == "cpu" and rep["program"] == "step" and rep["profiled_scans"] == 1
     assert rep["launch_calls_per_scan"] is None and rep["device_kernels_per_scan"] is None
+    assert rep["lie_launches_by_op"] == {}
     assert 0 < rep["scalar_output_ops"] < rep["aten_ops"]
     top = rep["top_functions"]
     assert len(top) == kernel_census.TOP_FUNCTIONS
