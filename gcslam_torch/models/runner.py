@@ -32,7 +32,9 @@ all full windows at once and the remainder scan by scan.
 
 What the host does is timed in spans (utils/profiling.span): run_bag and
 run_scan's staging of the bag (run_bag.start, run_bag.stack,
-run_bag.to_device), and each scan's staging and replay (step.launch) and
+run_bag.to_device), run_chunked's (run_chunked.start, .stack,
+.to_device) and its work at the window boundaries (run_chunked.poses,
+run_chunked.loop), and each scan's staging and replay (step.launch) and
 output copies (step.outputs). On the device, each CompiledStep's stage
 clock times the step's stages at every replay (stage_reading()).
 """
@@ -555,14 +557,21 @@ def run_chunked(
     dropped. `batches` may be a list or a ScanBatch stacked along a leading
     time axis. `live_viewer` logs every scan as run_stream's does (the JAX
     package's run_chunked takes none, and its eval.run drops --live-view
-    under --chunk); it is closed at the end."""
-    state, device = _start(config, state, device)
+    under --chunk); it is closed at the end. Host spans run_chunked.start,
+    run_chunked.stack and run_chunked.to_device (the windows' commit and
+    each remainder scan's), and at each full window's end
+    run_chunked.poses (the window's poses read back: the host waits for
+    the device there) and run_chunked.loop (the detector's calls)."""
+    with span("run_chunked.start"):
+        state, device = _start(config, state, device)
     n = _n_scans(batches)
     n_full = (n // chunk) * chunk
     if n_full:
-        head = (ScanBatch(*[x[:n_full] for x in batches]) if isinstance(batches, ScanBatch)
-                else stack_scan_batches(batches[:n_full]))
-        windows = COUNTERS.to_device(head, device)
+        with span("run_chunked.stack"):
+            head = (ScanBatch(*[x[:n_full] for x in batches]) if isinstance(batches, ScanBatch)
+                    else stack_scan_batches(batches[:n_full]))
+        with span("run_chunked.to_device"):
+            windows = COUNTERS.to_device(head, device)
     loop = StepLoop(config, state, n)
     outs = loop.outs
     pending = None
@@ -578,20 +587,24 @@ def run_chunked(
                         _log_live(live_viewer, i, _scan_at(batches, i), out, state, config)
                 pending = None
                 if loop_detector is not None:
-                    poses = COUNTERS.to_host(torch.stack([o.pose for o in outs[c:c + chunk]]))
-                    for j in range(chunk):
-                        i = c + j
-                        if i % loop_detector.cfg.keyframe_every:
-                            continue  # store() drops non-keyframes
-                        b = _scan_at(batches, i)
-                        loop_detector.store(i, poses[j], _host(b.points), _host(b.point_weights), None)
-                    if c + chunk < n:
-                        nb = _scan_at(batches, c + chunk)
-                        pending = loop_detector.detect(c + chunk, poses[-1], _host(nb.points),
-                                                       _host(nb.point_weights))
+                    with span("run_chunked.poses"):
+                        poses = COUNTERS.to_host(torch.stack([o.pose for o in outs[c:c + chunk]]))
+                    with span("run_chunked.loop"):
+                        for j in range(chunk):
+                            i = c + j
+                            if i % loop_detector.cfg.keyframe_every:
+                                continue  # store() drops non-keyframes
+                            b = _scan_at(batches, i)
+                            loop_detector.store(i, poses[j], _host(b.points), _host(b.point_weights), None)
+                        if c + chunk < n:
+                            nb = _scan_at(batches, c + chunk)
+                            pending = loop_detector.detect(c + chunk, poses[-1], _host(nb.points),
+                                                           _host(nb.point_weights))
             for i in range(n_full, n):
                 batch = _scan_at(batches, i)
-                state, out = loop.step(COUNTERS.to_device(batch, device))
+                with span("run_chunked.to_device"):
+                    staged = COUNTERS.to_device(batch, device)
+                state, out = loop.step(staged)
                 if live_viewer is not None:
                     _log_live(live_viewer, i, batch, out, state, config)
     finally:

@@ -908,6 +908,47 @@ def test_stage_clock_in_the_graph(cuda):
     runner.release_graphs()
 
 
+def test_run_chunked_spans_on_the_card(cuda, monkeypatch):
+    """run_chunked(chunk=3) with a loop detector over 11 scans on the card
+    (3 full windows and 2 remainder scans, the camera on): its poses,
+    tapes, final state and loop calls bit-equal with the host spans and
+    with every span a no-op; one run_chunked.poses and .loop a window."""
+    import contextlib
+
+    from gcslam_torch.frontend.loop import LoopConfig, LoopDetector
+    from gcslam_torch.utils.profiling import SPANS
+    from gcslam_torch.utils.tree import tree_leaves
+
+    cfg = PipelineConfig(**SMALL, with_camera=True)
+    batches = generate(SyntheticConfig(n_scans=11, n_points=1024, with_camera=True), device=cuda).batches
+
+    def chunked():
+        calls = []
+
+        class Recording(LoopDetector):
+            def detect(self, index, pose_guess, points, weights):
+                hit = super().detect(index, pose_guess, points, weights)
+                calls.append((index, pose_guess.copy(), hit))
+                return hit
+
+        out = runner.run_chunked(batches, cfg, chunk=3, loop_detector=Recording(LoopConfig(keyframe_every=3)),
+                                 device=cuda)
+        return [x.cpu() for x in tree_leaves(out)], calls
+
+    runner.release_graphs()
+    runner.run_chunked(batches, cfg, chunk=3, device=cuda)  # the capture
+    SPANS.reset()
+    on = chunked()
+    assert SPANS.calls["run_chunked.start"] == 1 and SPANS.calls["run_chunked.to_device"] == 3
+    assert SPANS.calls["run_chunked.poses"] == SPANS.calls["run_chunked.loop"] == 3
+    monkeypatch.setattr(runner, "span", lambda name: contextlib.nullcontext())
+    off = chunked()
+    assert all(torch.equal(a, b) for a, b in zip(on[0], off[0]))
+    assert [c[0] for c in on[1]] == [c[0] for c in off[1]] == [3, 6, 9]
+    assert all(np.array_equal(a[1], b[1]) and (a[2] is None) == (b[2] is None) for a, b in zip(on[1], off[1]))
+    runner.release_graphs()
+
+
 # --- the Lie-group maps and the 3 x 3 inverse (csrc/se3.cu) -------------------
 
 # A flagship scan's launches of the Lie-group kernel (gcslam::lie and

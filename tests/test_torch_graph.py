@@ -15,7 +15,11 @@
   - the stage clock (host stamps on the CPU) times the body's nine stages
     and changes no output; the host spans count each scan and call; the
     stage ranges show in a CPU profiler trace, and a profiled call leaves
-    the clock's and the spans' totals as they were.
+    the clock's and the spans' totals as they were;
+  - run_chunked's host spans: one run_chunked.start, .stack a call, one
+    run_chunked.poses and .loop a full window, one .to_device for the
+    windows and one for each remainder scan; its poses, tapes, final state
+    and loop-detector calls bit-equal with the spans and without them.
 """
 
 import collections
@@ -232,3 +236,60 @@ def test_stage_ranges_in_a_cpu_trace(world):
     assert [e.name() for e in stages] == [f"gcslam.stage.{s}" for s in STAGES] and len(launch) == 1
     lo, hi = launch[0].start_ns(), launch[0].start_ns() + launch[0].duration_ns()
     assert all(lo <= e.start_ns() and e.start_ns() + e.duration_ns() <= hi for e in stages)
+
+
+def _chunked(batches, cfg):
+    """run_chunked(chunk=2) with a loop detector that keeps every second
+    scan; returns (final state, outputs, the detector's calls)."""
+    from gcslam_torch.frontend.loop import LoopConfig, LoopDetector
+
+    calls = []
+
+    class Recording(LoopDetector):
+        def store(self, index, pose_est, points, weights, pose_cov=None):
+            calls.append(("store", index, pose_est.copy()))
+            return super().store(index, pose_est, points, weights, pose_cov)
+
+        def detect(self, index, pose_guess, points, weights):
+            hit = super().detect(index, pose_guess, points, weights)
+            calls.append(("detect", index, pose_guess.copy(), hit))
+            return hit
+
+    det = Recording(LoopConfig(keyframe_every=2, min_index_gap=2))
+    state, out = runner.run_chunked(batches, cfg, chunk=2, loop_detector=det, device="cpu")
+    return state, out, calls
+
+
+def test_run_chunked_spans_count_calls_and_windows(world):
+    """Two calls of run_chunked(chunk=2) over 5 scans (2 full windows and a
+    remainder scan): one run_chunked.start and .stack a call, one
+    run_chunked.poses and .loop a full window, and .to_device once for the
+    windows and once for the remainder scan."""
+    from gcslam_torch.utils.profiling import SPANS
+
+    cfg = PipelineConfig(**SMALL)
+    SPANS.reset()
+    for calls in (1, 2):
+        _chunked(world.batches, cfg)
+        assert dict(SPANS.calls) == {"run_chunked.start": calls, "run_chunked.stack": calls,
+                                     "run_chunked.to_device": 2 * calls, "run_chunked.poses": 2 * calls,
+                                     "run_chunked.loop": 2 * calls}
+    assert all(SPANS.seconds[k] > 0 for k in SPANS.calls)
+
+
+def test_run_chunked_outputs_are_the_same_without_spans(world, monkeypatch):
+    """run_chunked's poses, tapes, final state and loop-detector calls with
+    the host spans and with every span a no-op, bit for bit."""
+    import contextlib
+
+    import numpy as np
+
+    cfg = PipelineConfig(**SMALL)
+    on = _chunked(world.batches, cfg)
+    monkeypatch.setattr(runner, "span", lambda name: contextlib.nullcontext())
+    off = _chunked(world.batches, cfg)
+    for a, b in zip(tree_leaves(on[:2]), tree_leaves(off[:2])):
+        assert torch.equal(a, b)
+    assert [c[:2] for c in on[2]] == [c[:2] for c in off[2]] and len(on[2]) == 4
+    for a, b in zip(on[2], off[2]):
+        assert np.array_equal(a[2], b[2]) and (a[0] == "store" or (a[3] is None) == (b[3] is None))
