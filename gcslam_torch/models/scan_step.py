@@ -411,12 +411,12 @@ def _hypothesis_step(
     L_ev_raw = L_imu_odom + L_lidar
     h_ev_raw = h_imu_odom + h_lidar
     batch_shape = beta_scale.shape
-    certs_finite = torch.ones(batch_shape, dtype=torch.bool, device=dev)
-    for c in all_certs:
-        for name in CT.FLOAT_FIELDS:
-            certs_finite = certs_finite & ~torch.isnan(getattr(c, name))
+    # the certificates so far, as one stack: the NaN check here, the
+    # trigger magnitudes and the aggregate below
+    n_head = len(all_certs)
+    head = CT.stack(all_certs)
     ev_finite = (
-        torch.isfinite(L_ev_raw).all(-1).all(-1) & torch.isfinite(h_ev_raw).all(-1) & certs_finite
+        torch.isfinite(L_ev_raw).all(-1).all(-1) & torch.isfinite(h_ev_raw).all(-1) & CT.finite(head)
     ).to(L_ev_raw.dtype)
     ev_finite = ev_finite * inputs_finite.to(L_ev_raw.dtype)
     nonfinite = 1.0 - ev_finite
@@ -472,10 +472,10 @@ def _hypothesis_step(
     ee_gain_real = linalg.trace(L_post) - linalg.trace(L_prior_scaled)
 
     # --- Step 13: Frobenius recompose
-    total_mag = _nan0(CT.total_trigger_magnitude(all_certs))
-    rec, rec_cert = recompose.pose_update_frobenius_recompose(belief_post, total_mag, cfg.c_frob,
+    so_far = CT.cat([head, CT.stack(all_certs[n_head:])])
+    magnitude = CT.total_trigger_magnitude(so_far)
+    rec, rec_cert = recompose.pose_update_frobenius_recompose(belief_post, _nan0(magnitude), cfg.c_frob,
                                                               cfg.eps_lift)
-    all_certs.append(rec_cert)
     belief_rec = rec.belief
 
     # --- Step 14: process IW suffstats
@@ -485,7 +485,7 @@ def _hypothesis_step(
     # --- Step 16: anchor drift
     drift, drift_cert = recompose.anchor_drift_update(belief_rec, C.ANCHOR_DRIFT_M0,
                                                       C.ANCHOR_DRIFT_R0, cfg.eps_lift)
-    all_certs.append(drift_cert)
+    tail = CT.stack([rec_cert, drift_cert])
 
     return HypOutputs(
         belief=drift.belief,
@@ -493,8 +493,8 @@ def _hypothesis_step(
         dnu_proc=dnu_proc,
         dPsi_meas=dPsi_meas,
         dnu_meas=dnu_meas,
-        cert_agg=CT.Cert(*[x.expand(batch_shape) for x in CT.scrub(CT.aggregate(all_certs))]),
-        total_trigger_mag=_nan0(CT.total_trigger_magnitude(all_certs)),
+        cert_agg=CT.Cert(*[x.expand(batch_shape) for x in CT.scrub(CT.aggregate(CT.cat([so_far, tail])))]),
+        total_trigger_mag=_nan0(CT.total_trigger_magnitude(tail, start=magnitude)),
         cond_pose6=cond_pose6,
         eigmin_pose6=eigmin_pose6,
         alpha=alpha,

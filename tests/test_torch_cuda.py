@@ -864,6 +864,40 @@ def test_compiled_step_replays_equal_the_eager_step(cuda):
     runner.release_graphs()
 
 
+# the most kernels a flagship scan may run (6,870 a scan when each
+# certificate field had its own fills, NaN checks and reductions)
+FLAGSHIP_SCAN_MAX_KERNELS = 4800
+
+
+def test_a_flagship_scan_runs_few_kernels_and_its_graph_equals_the_eager_step(cuda):
+    """A flagship scan (PipelineConfig(), 8192 points), eager and replayed
+    from the captured graph, runs at most FLAGSHIP_SCAN_MAX_KERNELS kernels;
+    run_bag's replays over 50 scans equal the eager scan_step loop bit for
+    bit (poses, tapes with the certificate fields, state)."""
+    from gcslam_torch.models.scan_step import init_state, scan_step
+    from gcslam_torch.utils import cuda_profile
+    from gcslam_torch.utils.tree import tree_leaves
+
+    cfg = PipelineConfig()
+    batches = generate(SyntheticConfig(n_scans=50, n_points=8192), device=cuda).batches
+    with torch.no_grad():
+        state = init_state(cfg, device=cuda)
+        for b in batches[:3]:
+            state, _ = scan_step(state, b, cfg)
+        eager = cuda_profile.profile_record(lambda: scan_step(state, batches[3], cfg), 1)
+    runner.release_graphs()
+    state_g, out_g = runner.run_bag(batches, cfg, device=cuda)
+    replay = cuda_profile.profile_record(lambda: runner.run_bag(batches[:10], cfg, state=state_g, device=cuda), 10)
+    print(f"kernels a flagship scan: eager {eager['device_kernels_per_scan']}, "
+          f"replayed {replay['device_kernels_per_scan']}")
+    assert eager["device_kernels_per_scan"] <= FLAGSHIP_SCAN_MAX_KERNELS
+    assert replay["device_kernels_per_scan"] <= FLAGSHIP_SCAN_MAX_KERNELS
+    state_e, out_e = runner.eager_steps(init_state(cfg, device=cuda), batches, cfg)
+    for a, b in zip(tree_leaves(out_e) + tree_leaves(state_e), tree_leaves(out_g) + tree_leaves(state_g)):
+        assert torch.equal(a, b)
+    runner.release_graphs()
+
+
 def test_stage_clock_in_the_graph(cuda):
     """The compiled step with its stage clock against the same step captured
     without it: poses, tapes and state bit-equal at every replay; the clock
